@@ -1,0 +1,63 @@
+"""lz4tpu_torch — the PyTorch/CUDA port of lz4tpu for an NVIDIA H100.
+
+A second package beside the JAX one: the same LZ4 block codec and frame
+format, with the TPU's Pallas kernels replaced by CUDA kernels written by
+hand for Hopper (``csrc/``, built by ``nvcc`` at first use, see
+``build.py``) and the JAX glue by PyTorch tensors.  It imports neither
+``jax`` nor anything of ``lz4tpu``.
+
+Every entry point takes ``device=None``, meaning ``"cuda"``; without a card
+that raises.  ``device="cpu"`` runs each kernel's plain version instead.
+
+* frames, whole-frame on the device: ``compress_frame_parallel``,
+  ``decompress_frame_parallel``;
+* frames, streaming: ``CompressionSettings``, ``LZ4FrameReader``,
+  ``decompress_frame``;
+* raw blocks: ``compress_blocks``, ``compress_block_cuda``,
+  ``decompress_blocks``, ``decompress_block_cuda``,
+  ``decompress_blocks_128``, ``decompress_blocks_v4``;
+* encoder-table state shared with the JAX package: ``tables_from_jax``,
+  ``tables_to_numpy``.
+"""
+
+from .frame.compress import CompressionSettings
+from .frame.decompress import LZ4FrameReader, decompress_frame
+from .frame.errors import (
+    CompressionError,
+    DecompressionError,
+    HeaderParseError,
+    LZ4Error,
+)
+from .frame.header import MAGIC, WINDOW_SIZE
+from .kernels.compress import compress_block_cuda, compress_blocks
+from .kernels.decode128 import decompress_blocks_128
+from .kernels.decompress import decompress_block_cuda, decompress_blocks
+from .kernels.decompress_v4 import decompress_blocks_v4
+from .parallel.pipeline import compress_frame_parallel, decompress_frame_parallel
+from .spec.block import BlockTooBig, DecodeError, Incompressible
+from .state import tables_from_jax, tables_to_numpy
+
+__all__ = [
+    "CompressionSettings",
+    "LZ4FrameReader",
+    "decompress_frame",
+    "compress_frame_parallel",
+    "decompress_frame_parallel",
+    "compress_blocks",
+    "compress_block_cuda",
+    "decompress_blocks",
+    "decompress_block_cuda",
+    "decompress_blocks_128",
+    "decompress_blocks_v4",
+    "tables_from_jax",
+    "tables_to_numpy",
+    "DecodeError",
+    "Incompressible",
+    "BlockTooBig",
+    "LZ4Error",
+    "CompressionError",
+    "DecompressionError",
+    "HeaderParseError",
+    "MAGIC",
+    "WINDOW_SIZE",
+]

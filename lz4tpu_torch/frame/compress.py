@@ -1,0 +1,237 @@
+"""LZ4 frame compression — the streaming host-side frame writer.
+
+The port's own copy of ``lz4tpu/frame/compress.py`` (reference
+``src/framed/compress.rs``): the ``CompressionSettings`` builder, frame
+header emission with the xxh32 header checksum, dictionary priming, the
+per-block loop with the incompressible fallback capping output at input
+size, independent-vs-linked table/window maintenance, and the EndMark +
+content checksum trailer.
+
+The block engine is ``"cuda"`` (default: the CUDA compressor through
+``kernels.compress.compress_block_cuda``), ``"cpu"`` (the same adapter
+on the kernel's plain version) or a callable with the spec's
+``compress_block`` contract.  The JAX package's threaded native path and
+its high-compression ``level`` parse are not part of the port.  Batch
+compression of whole frames is ``lz4tpu_torch.parallel.pipeline``.
+"""
+
+from __future__ import annotations
+
+import functools
+import io
+
+from ..runtime import resolve_device
+from ..spec.block import Incompressible
+from ..spec.table import U32Table, prime_u32_table
+from ..spec.xxhash32 import xxh32
+from ..utils.hashing import make_hasher
+from ..utils.hashing import xxh32 as payload_xxh32
+from .errors import InvalidBlockSize
+from .header import INCOMPRESSIBLE, MAGIC, WINDOW_SIZE, BlockDescriptor, Flags
+
+
+def _resolve_engine(name):
+    """Map an engine name to (``compress_block`` callable, checksum device)."""
+    if callable(name):
+        return name, "cpu"
+    from ..kernels.compress import compress_block_cuda
+
+    dev = resolve_device(name)
+    return functools.partial(compress_block_cuda, device=dev), dev.type
+
+
+class CompressionSettings:
+    """Builder-style frame compression configuration
+    (mirrors ``CompressionSettings``, reference ``compress.rs:36-134``).
+
+    Defaults match the reference: independent blocks on, block checksums
+    off, content checksum on, 4 MiB blocks, no dictionary.
+    """
+
+    def __init__(self):
+        self._independent_blocks = True
+        self._block_checksums = False
+        self._content_checksum = True
+        self._block_size = 4 * 1024 * 1024
+        self._dictionary = None
+        self._dictionary_id = None
+        self._acceleration = 1
+        self._engine = "cuda"
+
+    # -- builder setters (reference naming) ---------------------------------
+
+    def independent_blocks(self, v: bool) -> "CompressionSettings":
+        """Independent blocks (default) never reference previous blocks;
+        linked blocks may reach back 64 KiB for better ratio but lose
+        seekability."""
+        self._independent_blocks = v
+        return self
+
+    def block_checksums(self, v: bool) -> "CompressionSettings":
+        self._block_checksums = v
+        return self
+
+    def content_checksum(self, v: bool) -> "CompressionSettings":
+        self._content_checksum = v
+        return self
+
+    def block_size(self, v: int) -> "CompressionSettings":
+        """Only 4 MiB, 1 MiB, 256 KiB and 64 KiB are valid."""
+        self._block_size = v
+        return self
+
+    def dictionary(self, dict_id: int, dict_bytes) -> "CompressionSettings":
+        """Preset dictionary + application-specific id.  Only the trailing
+        64 KiB can ever be referenced."""
+        self._dictionary_id = dict_id
+        self._dictionary = bytes(dict_bytes)
+        return self
+
+    def dictionary_id_nonsense_override(self, dict_id) -> "CompressionSettings":
+        """Set/clear the dictionary id independently of the dictionary."""
+        self._dictionary_id = dict_id
+        return self
+
+    def acceleration(self, v: int) -> "CompressionSettings":
+        """Match-search skip acceleration; 1 is the C default.  Higher values
+        trade ratio for speed exactly like ``LZ4_compress_fast``."""
+        self._acceleration = max(int(v), 1)
+        return self
+
+    def engine(self, name) -> "CompressionSettings":
+        """Block-codec backend: ``"cuda"``, ``"cpu"`` or a callable."""
+        self._engine = name
+        return self
+
+    # -- compression entry points -------------------------------------------
+
+    def compress(self, reader, writer) -> None:
+        """Compress without a content-size header field."""
+        self._compress_internal(_as_reader(reader), writer, None)
+
+    def compress_with_size_unchecked(self, reader, writer, content_size: int) -> None:
+        self._compress_internal(_as_reader(reader), writer, content_size)
+
+    def compress_with_size(self, reader, writer) -> None:
+        """Learn the content size by seeking to the end first."""
+        reader = _as_reader(reader)
+        start = reader.tell()
+        end = reader.seek(0, io.SEEK_END)
+        reader.seek(start)
+        self._compress_internal(reader, writer, end - start)
+
+    def compress_bytes(self, data, with_size: bool = True) -> bytes:
+        """Convenience one-shot: bytes in, frame bytes out."""
+        out = io.BytesIO()
+        if with_size:
+            self.compress_with_size_unchecked(io.BytesIO(bytes(data)), out, len(data))
+        else:
+            self.compress(io.BytesIO(bytes(data)), out)
+        return out.getvalue()
+
+    # -- the frame writer itself (reference compress.rs:159-282) ------------
+
+    def _compress_internal(self, reader, writer, content_size) -> None:
+        compress_block, hash_device = _resolve_engine(self._engine)
+
+        flags = Flags(
+            independent_blocks=self._independent_blocks,
+            block_checksums=self._block_checksums,
+            content_checksum=self._content_checksum,
+            content_size=content_size is not None,
+            dictionary_id=self._dictionary_id is not None,
+        )
+        content_hasher = make_hasher(0, hash_device) if self._content_checksum else None
+
+        bd = BlockDescriptor.for_block_maxsize(self._block_size)
+        if bd is None:
+            raise InvalidBlockSize(f"{self._block_size} is not a valid LZ4 block size")
+
+        header = bytearray()
+        header.extend(MAGIC.to_bytes(4, "little"))
+        header.append(flags.encode())
+        header.append(bd.byte)
+        if content_size is not None:
+            header.extend(int(content_size).to_bytes(8, "little"))
+        if self._dictionary_id is not None:
+            header.extend(int(self._dictionary_id).to_bytes(4, "little"))
+        header.append((xxh32(header[4:]) >> 8) & 0xFF)
+        writer.write(bytes(header))
+
+        # dictionary priming: template table + block initializer
+        template_table = U32Table()
+        block_initializer = b""
+        if self._dictionary is not None:
+            prime_u32_table(template_table, self._dictionary)
+            block_initializer = self._dictionary
+
+        in_buffer = bytearray(block_initializer)
+        table = template_table.copy()
+        while True:
+            window_offset = len(in_buffer)
+            in_buffer.extend(_read_up_to(reader, self._block_size))
+            read_bytes = len(in_buffer) - window_offset
+            if read_bytes == 0:
+                break
+
+            if content_hasher is not None:
+                content_hasher.update(in_buffer[window_offset:])
+
+            data = bytes(in_buffer)
+            # on cap-abort the table has still applied all mutations up to
+            # the abort point, like the reference's NoPartialWrites
+            compressed = None
+            try:
+                compressed = bytes(
+                    compress_block(
+                        data,
+                        cursor=window_offset,
+                        table=table,
+                        acceleration=self._acceleration,
+                        cap=read_bytes,
+                    )
+                )
+            except Incompressible:
+                pass
+            if compressed is not None:
+                writer.write(len(compressed).to_bytes(4, "little"))
+                payload = compressed
+            else:
+                writer.write((read_bytes | INCOMPRESSIBLE).to_bytes(4, "little"))
+                payload = data[window_offset:]
+
+            writer.write(payload)
+            if flags.block_checksums:
+                writer.write(payload_xxh32(payload, device=hash_device).to_bytes(4, "little"))
+
+            if flags.independent_blocks:
+                in_buffer = bytearray(block_initializer)
+                table = template_table.copy()
+            elif len(in_buffer) > WINDOW_SIZE:
+                forget = len(in_buffer) - WINDOW_SIZE
+                table.slide(forget)
+                del in_buffer[:forget]
+
+        writer.write((0).to_bytes(4, "little"))
+        if content_hasher is not None:
+            writer.write(content_hasher.digest().to_bytes(4, "little"))
+
+
+def _read_up_to(reader, n: int) -> bytes:
+    """``Read::take(n).read_to_end`` semantics: keep reading until n bytes
+    or EOF."""
+    chunks = []
+    remaining = n
+    while remaining:
+        chunk = reader.read(remaining)
+        if not chunk:
+            break
+        chunks.append(chunk)
+        remaining -= len(chunk)
+    return b"".join(chunks)
+
+
+def _as_reader(obj):
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        return io.BytesIO(bytes(obj))
+    return obj

@@ -1,0 +1,142 @@
+"""The PyTorch/CUDA port stands alone: it imports neither JAX nor the JAX
+package, and its entry points never run on the CPU unless asked to."""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "lz4tpu_torch"
+
+
+def _sources():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def _forbidden(name):
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "lz4tpu")
+
+
+def test_import_leaves_jax_and_lz4tpu_out():
+    code = (
+        "import sys, lz4tpu_torch\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lz4tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_lz4tpu_import_in_source(path):
+    bad = [m for m in _imported_modules(path) if _forbidden(m)]
+    assert not bad, f"{path} imports {bad}"
+
+
+def _entry_points():
+    import lz4tpu_torch as lt
+
+    frame = lt.compress_frame_parallel(b"abc" * 100, device="cpu")
+    return {
+        "compress_frame_parallel": lambda: lt.compress_frame_parallel(b"abc" * 100),
+        "decompress_frame_parallel": lambda: lt.decompress_frame_parallel(frame),
+        "compress_blocks": lambda: lt.compress_blocks([b"abc" * 100]),
+        "compress_block_cuda": lambda: lt.compress_block_cuda(b"abc" * 100),
+        "decompress_blocks": lambda: lt.decompress_blocks([b"\x10a"]),
+        "decompress_block_cuda": lambda: lt.decompress_block_cuda(b"\x10a"),
+        "decompress_blocks_128": lambda: lt.decompress_blocks_128([b"\x10a"]),
+        "decompress_blocks_v4": lambda: lt.decompress_blocks_v4([b"\x10a"]),
+        "CompressionSettings": lambda: lt.CompressionSettings().compress_bytes(b"abc"),
+        "decompress_frame": lambda: lt.decompress_frame(frame),
+    }
+
+
+@pytest.mark.parametrize("name", sorted([
+    "compress_frame_parallel", "decompress_frame_parallel", "compress_blocks",
+    "compress_block_cuda", "decompress_blocks", "decompress_block_cuda",
+    "decompress_blocks_128", "decompress_blocks_v4", "CompressionSettings",
+    "decompress_frame",
+]))
+def test_default_device_is_cuda_and_raises_without_it(name, monkeypatch):
+    fn = _entry_points()[name]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device=None means 'cuda'"):
+        fn()
+
+
+def test_wrappers_refuse_devices_they_have_no_kernel_for():
+    """A non-CPU tensor never takes the plain version: the wrapper launches
+    its kernel (CUDA) or raises."""
+    from lz4tpu_torch.kernels.compress import compress_batch
+    from lz4tpu_torch.kernels.decode128 import decode128
+
+    meta = torch.device("meta")
+    i32 = torch.zeros(2, dtype=torch.int32, device=meta)
+    with pytest.raises(ValueError, match="unsupported device"):
+        compress_batch(torch.zeros((2, 16), dtype=torch.uint8, device=meta),
+                       i32, i32, i32, i32, i32, i32,
+                       torch.zeros((2, 4096), dtype=torch.int32, device=meta))
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode128(torch.zeros((2, 16), dtype=torch.uint8, device=meta), i32,
+                  torch.zeros((1, 0), dtype=torch.uint8, device=meta), i32, 1024)
+
+
+def test_wrappers_check_dtype_shape_and_device():
+    from lz4tpu_torch.kernels.compress import compress_batch
+    from lz4tpu_torch.kernels.decode128 import decode128
+
+    i32 = torch.zeros(2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="uint8"):
+        compress_batch(torch.zeros((2, 16), dtype=torch.int32), i32, i32, i32, i32, i32, i32,
+                       torch.zeros((2, 4096), dtype=torch.int32))
+    with pytest.raises(ValueError, match="tables"):
+        compress_batch(torch.zeros((2, 16), dtype=torch.uint8), i32, i32, i32, i32, i32, i32,
+                       torch.zeros((2, 100), dtype=torch.int32))
+    with pytest.raises(ValueError, match="comp_len"):
+        decode128(torch.zeros((2, 16), dtype=torch.uint8), torch.zeros(3, dtype=torch.int32),
+                  torch.zeros((1, 0), dtype=torch.uint8), i32, 1024)
+    with pytest.raises(ValueError, match="limit"):
+        decode128(torch.zeros((2, 16), dtype=torch.uint8), i32,
+                  torch.zeros((1, 0), dtype=torch.uint8), i32, 1 << 20)
+
+
+def test_chip_smoke_refuses_without_the_package(tmp_path):
+    """Alone in a directory, the smoke script fails and prints no result."""
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_chip_smoke_refuses_without_cuda():
+    code = (
+        "import sys, runpy, torch\n"
+        "torch.cuda.is_available = lambda: False\n"
+        "sys.argv = ['chip_smoke.py']\n"
+        "runpy.run_path('chip_smoke.py', run_name='__main__')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
