@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                 # full run: needs one CUDA card
     python3 chip_smoke.py --scale 0.05    # smaller corpus (main path)
-    python3 chip_smoke.py --profile       # + host profile of one round trip
+    python3 chip_smoke.py --profile       # + host and device profile of each path
 
 Phases, in order; any mismatch or exception exits non-zero:
 
@@ -12,15 +12,32 @@ Phases, in order; any mismatch or exception exits non-zero:
 2. every CUDA kernel against its plain PyTorch version on the same inputs
    (the plain version runs on a CPU copy): the greedy compressor (U16/U32
    tables, acceleration 1 and 8, dictionary-primed tables with a cursor,
-   in-kernel priming, caps that trigger Incompressible), decode128 and
-   decompress_v4 (64 KiB prefixes, hostile blocks, 1 MiB and 4 MiB blocks
-   for v4).  Bytes, lengths, statuses and tables must be equal: a byte
-   codec has no tolerance;
-3. the main path at full size: each Silesia stand-in member (scale 1.0:
-   211,938,580 bytes) through ``compress_frame_parallel(block_size=65536,
+   in-kernel priming, caps that trigger Incompressible, the 1 MiB and
+   4 MiB rows of big-block frames and the ``[64 KiB window | block]`` rows
+   of linked ones) and the four decoders, decode128, decompress_v4,
+   decode_big and decompress_v3 (64 KiB prefixes, hostile blocks, seeded
+   mutations of valid blocks; for the last three also blocks of 256 KiB,
+   1 MiB and 4 MiB without a prefix, with a 64 KiB prefix and with a
+   prefix too short for their offsets).  Bytes, lengths, statuses
+   and tables must be equal: a byte codec has no tolerance;
+3. the 64 KiB independent-block path at full size: each Silesia stand-in
+   member (scale 1.0: 211,938,580 bytes) through ``compress_frame_parallel(block_size=65536,
    content_checksum=True)`` and ``decompress_frame_parallel`` on the card,
-   plus a dictionary frame and a 4 MiB-block frame; outputs must be
-   byte-equal to the inputs and every kernel's launch count above zero.
+   plus a dictionary frame and a 4 MiB-block frame (decoded by decode_big
+   and, with ``lane_kernel=False``, by decompress_v4);
+4. the big-block and linked-frame path at full size, over the same
+   corpus: (a) each member as an independent frame of 4 MiB blocks
+   (decode_big); (b) each member cut
+   into 1 MiB segments, each a linked frame of 64 KiB blocks from
+   ``compress_frame_parallel(parallel_linked=True)``, all decoded by one
+   ``decompress_frames_parallel`` call (waves on decode128); (c) each
+   member as one linked frame of 4 MiB blocks, decoded by one such call
+   (waves on decode_big); (d) one member's 64 KiB blocks through
+   ``decompress_blocks_v3``.
+
+In phases 3 and 4 outputs must be byte-equal to the inputs, and every
+kernel of a path must have been launched on it: the launch counts are set
+to 0 before each path and read after it.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -38,6 +55,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
+SEGMENT = 1 << 20  # phase 4 (b): a log segment or page group
 
 
 def fail(msg: str) -> None:
@@ -174,12 +192,29 @@ def check_compress(members):
            ((names[1], 1 << 20), (names[-1], 4 << 20))]
     cases["big_rows"] = batch(big, [0] * 2, [len(b) for b in big], 1,
                               np.zeros((2, U32_SLOTS), np.int32), [0] * 2)
+    # F: the linked big-block frame's rows — ``[64 KiB window | 4 MiB block]``
+    # parsed from cursor 65536 behind a table primed in the kernel, a short
+    # last block, a 1 MiB block, and a first block (no window: laid out at
+    # cursor 0 with a zero tail, unprimed); cap = block size, and the output
+    # rows as wide as the frame writer makes them
+    w = 65536
+    src = members[names[1]]
+    blk = min(4 << 20, (len(src) - w) // 3 // 16 * 16)  # 4 MiB at full scale
+    span = src[len(src) // 3 :][: w + blk + blk // 3]
+    first = members[names[5]][:blk]
+    linked = [span[: w + blk], span[blk:], members[names[8]][-(w + min(blk, 1 << 20)) :],
+              first + bytes(w)]
+    lens = [len(r) - w for r in linked]
+    cases["linked_big_rows"] = batch(linked, [w, w, w, 0], lens, 1,
+                                     np.zeros((4, U32_SLOTS), np.int32), [1, 1, 1, 0])
+    cases["linked_big_rows"][1][3] = len(first)  # the zero tail is not input
+    out_caps = {"linked_big_rows": blk + 16}
 
     err = 0
     timing = {}
     for name, args in cases.items():
         width = args[0].shape[1]
-        cap = -(-compress_bound(width) // 16) * 16
+        cap = out_caps.get(name, -(-compress_bound(width) // 16) * 16)
         t0 = time.perf_counter()
         want = kc.compress_plain(*args, cap)
         plain_ms = (time.perf_counter() - t0) * 1e3
@@ -221,96 +256,200 @@ def hostile_blocks(valid, rng):
     return out
 
 
+def mutate(r: random.Random, buf: bytes, depth: int = 0) -> bytes:
+    """One seeded mutation of a compressed block."""
+    b = bytearray(buf)
+    if not b:
+        return r.randbytes(r.randrange(1, 8))
+    op = r.randrange(8)
+    if op == 0:  # single bit flip
+        b[r.randrange(len(b))] ^= 1 << r.randrange(8)
+    elif op == 1:  # byte substitution
+        b[r.randrange(len(b))] = r.getrandbits(8)
+    elif op == 2:  # truncation
+        del b[r.randrange(len(b)):]
+    elif op == 3:  # length-field corruption: extreme LE value at any spot
+        p = r.randrange(len(b))
+        w = r.choice((1, 2, 4))
+        val = r.choice((0, 1, 0xFE, 0xFFFF, 0x00FFFFFF, 0x7FFFFFFF, 1 << 31, 0xFFFFFFFF))
+        b[p : p + w] = val.to_bytes(4, "little")[:w]
+    elif op == 4:  # insert junk
+        p = r.randrange(len(b) + 1)
+        b[p:p] = r.randbytes(r.randrange(1, 6))
+    elif op == 5:  # duplicate an internal slice elsewhere
+        p = r.randrange(len(b))
+        ln = r.randrange(1, min(64, len(b) - p) + 1)
+        q = r.randrange(len(b) + 1)
+        b[q:q] = b[p : p + ln]
+    elif op == 6:  # delete a slice
+        p = r.randrange(len(b))
+        del b[p : p + r.randrange(1, min(32, len(b) - p) + 1)]
+    elif depth < 3:  # stacked mutations
+        return mutate(r, mutate(r, bytes(b), depth + 1), depth + 1)
+    return bytes(b)
+
+
 def check_decoders(members):
-    """decode128 and decompress_v4 against their plain version."""
+    """The four decoders against their plain version (one function for all
+    of them: they share a contract)."""
     import numpy as np
     import torch
 
     from lz4tpu_torch.kernels import decode128 as d128
+    from lz4tpu_torch.kernels import decodebig as dbig
+    from lz4tpu_torch.kernels import decompress_v3 as dv3
     from lz4tpu_torch.kernels import decompress_v4 as dv4
     from lz4tpu_torch.kernels.compress import compress_blocks
     from lz4tpu_torch.kernels.pack import pack_rows
     from lz4tpu_torch.spec.table import U32Table
 
+    decoders = {"decode128": d128.decode128, "decode_v4": dv4.decode_v4,
+                "decode_big": dbig.decode_big, "decode_v3": dv3.decode_v3}
     rng = random.Random(0x5EED)
     names = list(members)
-    per = 16
-    raw = [b for m in names for b in cut_blocks(members[m], 65536, per)]
-    comp, _ = compress_blocks(raw, device="cuda")
-    comp = [c if c is not None else b"" for c in comp]
-    # blocks that reach into a 64 KiB prefix: [prefix | block] from cursor 64 KiB
-    pre_raw = [b for m in names[:4] for b in cut_blocks(members[m], 2 * 65536, 8)]
-    pcomp, _ = compress_blocks(pre_raw, cursors=[65536] * len(pre_raw),
-                               tables=[U32Table() for _ in pre_raw], prime_prefix=True,
-                               device="cuda")
-    blocks = comp + [c for c in pcomp if c is not None]
-    prefixes = [b""] * len(comp) + [r[:65536] for r, c in zip(pre_raw, pcomp) if c is not None]
-    hostile = hostile_blocks(comp[:: max(len(comp) // 16, 1)], rng)
-    blocks += hostile
-    prefixes += [rng.choice([b"", raw[0][:300]]) for _ in hostile]
 
     def tensors(blks, pfx):
         c, cl = pack_rows(blks, "cpu")
         p, pl = pack_rows(pfx, "cpu", align_right=True)
         return c, cl, p, pl
 
+    def plain(args, limit):
+        t0 = time.perf_counter()
+        want = d128.decode_plain(*args, limit, -(-(limit + args[0].shape[1]) // 16) * 16)
+        return want, (time.perf_counter() - t0) * 1e3
+
+    def behind_prefix(rows):
+        """Rows ``[64 KiB prefix | block]`` compressed from cursor 64 KiB:
+        blocks whose offsets reach into the prefix."""
+        comp, _ = compress_blocks(rows, cursors=[65536] * len(rows),
+                                  tables=[U32Table() for _ in rows], prime_prefix=True,
+                                  device="cuda")
+        return [(c, r[:65536]) for c, r in zip(comp, rows) if c is not None]
+
+    per = 16
+    raw = [b for m in names for b in cut_blocks(members[m], 65536, per)]
+    comp, _ = compress_blocks(raw, device="cuda")
+    comp = [c if c is not None else b"" for c in comp]
+    pairs = behind_prefix([b for m in names[:4] for b in cut_blocks(members[m], 2 * 65536, 8)])
+    blocks = comp + [c for c, _ in pairs]
+    prefixes = [b""] * len(comp) + [p for _, p in pairs]
+    hostile = hostile_blocks(comp[:: max(len(comp) // 16, 1)], rng)
+    blocks += hostile
+    prefixes += [rng.choice([b"", raw[0][:300]]) for _ in hostile]
+
     args = tensors(blocks, prefixes)
+    want, _ = plain(args, 65536)
+    st = want[2].numpy()
+    kinds = {int(s): int((st == s).sum()) for s in np.unique(st)}
+    if len(kinds) < 5:
+        fail(f"decoders: the hostile batch did not reach every status: {kinds}")
     report = {}
-    for name, fn in (("decode128", d128.decode128), ("decode_v4", dv4.decode_v4)):
-        want = d128.decode_plain(*args, 65536, -(-(65536 + args[0].shape[1]) // 16) * 16)
+    for name, fn in decoders.items():
         got = fn(*(a.cuda() for a in args), 65536)
         torch.cuda.synchronize()
-        err = same(name, got, want)
-        st = want[2].numpy()
-        kinds = {int(s): int((st == s).sum()) for s in np.unique(st)}
+        report[name] = dict(err=same(name, got, want))
         print(f"  {name}: {len(blocks)} blocks (statuses {kinds}), equal to plain")
-        if len(kinds) < 5:
-            fail(f"{name}: the hostile batch did not reach every status: {kinds}")
-        report[name] = dict(err=err)
+    # the same batch in rows 5 bytes wider: rows then start off the 16-byte
+    # grid that decode_big and decode_v3 load the compressed stream on
+    odd = (torch.nn.functional.pad(args[0], (0, 5)), *args[1:])
+    want, _ = plain(odd, 65536)
+    for name, fn in decoders.items():
+        got = fn(*(a.cuda() for a in odd), 65536)
+        torch.cuda.synchronize()
+        report[name]["err"] = max(report[name]["err"], same(f"{name}[odd rows]", got, want))
+    print(f"  all four on rows of {odd[0].shape[1]} bytes (not a multiple of 16): equal to plain")
+
+    # seeded mutations of compressed blocks, half behind a prefix they may
+    # reach into: 3,000 of small blocks and 600 random strings (limit 8 KiB),
+    # then 150 of 256 KiB blocks (limit 256 KiB; decode128 holds 64 KiB)
+    fuzz = random.Random(0x70C4)
+    data = members[names[0]]
+    small = [data[k << 14 :][: 2048 + 512 * k] for k in range(12)]
+    seeds = [c for c in compress_blocks(small, device="cuda")[0] if c is not None]
+    blocks = [mutate(fuzz, fuzz.choice(seeds)) for _ in range(3000)]
+    blocks += [fuzz.randbytes(fuzz.randrange(0, 300)) for _ in range(600)]
+    fargs = tensors(blocks, [fuzz.choice([b"", b"", data[:3000], data[:7]]) for _ in blocks])
+    want, _ = plain(fargs, 8192)
+    for name, fn in decoders.items():
+        got = fn(*(a.cuda() for a in fargs), 8192)
+        torch.cuda.synchronize()
+        report[name]["err"] = max(report[name]["err"], same(f"{name}[mutated small]", got, want))
+    n_bad = int((want[2] != 0).sum())
+    seeds = [c for c in compress_blocks(cut_blocks(data, 1 << 18, 4), device="cuda")[0]
+             if c is not None]
+    blocks = [mutate(fuzz, fuzz.choice(seeds)) for _ in range(150)]
+    fargs = tensors(blocks, [fuzz.choice([b"", data[-65536:]]) for _ in blocks])
+    want, _ = plain(fargs, 1 << 18)
+    for name in ("decode_v4", "decode_big", "decode_v3"):
+        got = decoders[name](*(a.cuda() for a in fargs), 1 << 18)
+        torch.cuda.synchronize()
+        report[name]["err"] = max(report[name]["err"], same(f"{name}[mutated 256 KiB]", got, want))
+    print(f"  3,600 mutated small blocks ({n_bad} refused) on all four, 150 mutated 256 KiB "
+          f"blocks ({int((want[2] != 0).sum())} refused) on v4, big and v3: equal to plain")
 
     # timing at decode128's main-path shape: the valid 64 KiB blocks, no
-    # prefix (decode_v4 on the same batch is printed for comparison)
+    # prefix; decode128 and decode_v3 are reported at it, the others printed
     targs = tensors(comp, [b""] * len(comp))
+    _, plain_ms = plain(targs, 65536)
     moved = int(targs[1].sum()) + sum(len(r) for r in raw)
-    for name, fn in (("decode128", d128.decode128), ("decode_v4", dv4.decode_v4)):
-        t0 = time.perf_counter()
-        d128.decode_plain(*targs, 65536, -(-(65536 + targs[0].shape[1]) // 16) * 16)
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        dev = [a.cuda() for a in targs]
-        ms = cuda_ms(lambda: fn(*dev, 65536))
-        timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
-                      shape=f"{len(comp)} x 64 KiB blocks")
-        if name == "decode128":
-            report[name].update(timing)
-        else:
-            print(f"  decode_v4 at decode128's shape: {ms:.3f} ms on the card "
-                  f"(decode128 {report['decode128']['ms']:.3f} ms)")
+    dev = [a.cuda() for a in targs]
+    shape = f"{len(comp)} x 64 KiB blocks"
+    at_128 = {name: cuda_ms(lambda fn=fn: fn(*dev, 65536)) for name, fn in decoders.items()}
+    for name in ("decode128", "decode_v3"):
+        report[name].update(ms=at_128[name], plain_ms=plain_ms,
+                            bound_ms=moved / HBM_BYTES_PER_S * 1e3, shape=shape)
+    print(f"  at decode128's shape ({shape}): "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in at_128.items()))
 
-    # v4 beyond the TPU version's windows: 1 MiB and 4 MiB blocks
-    sizes = [1 << 20, 4 << 20]
+    # big blocks, beyond the TPU kernels' windows: 256 KiB, 1 MiB and 4 MiB,
+    # without a prefix, behind a 64 KiB prefix, and with that prefix cut to
+    # 300 bytes (offsets that reach before it are invalid)
+    sizes = [1 << 18, 1 << 20, 4 << 20]
+    limit = max(sizes)
     big_raw = [cut_blocks(members[m], s, 1)[0] for s in sizes for m in names[:3]]
     big_comp, _ = compress_blocks(big_raw, device="cuda")
-    big = [c if c is not None else r for c, r in zip(big_comp, big_raw)]
-    bargs = tensors(big, [b""] * len(big))
-    limit = max(sizes)
-    t0 = time.perf_counter()
-    want = d128.decode_plain(*bargs, limit, -(-(limit + bargs[0].shape[1]) // 16) * 16)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    dev = [a.cuda() for a in bargs]
-    got = dv4.decode_v4(*dev, limit)
-    torch.cuda.synchronize()
-    report["decode_v4"]["err"] = max(report["decode_v4"]["err"], same("decode_v4[big]", got, want))
+    if any(c is None for c in big_comp):
+        fail("decoders: a big block of the stand-in did not compress")
+    pairs = behind_prefix([cut_blocks(members[m], 65536 + s, 2)[1] for s in sizes
+                           for m in names[3:5]])
+    reach_302 = b"\x10A\x2e\x01"  # valid behind 64 KiB, invalid behind 300 bytes
+    blocks = big_comp + ([c for c, _ in pairs] + [reach_302]) * 2
+    prefixes = ([b""] * len(big_comp) + [p for _, p in pairs] + [pairs[0][1]]
+                + [p[-300:] for _, p in pairs] + [pairs[0][1][-300:]])
+    bargs = tensors(blocks, prefixes)
+    want, _ = plain(bargs, limit)
     for i, r in enumerate(big_raw):
-        if big_comp[i] is not None and want[0][i, : len(r)].numpy().tobytes() != r:
-            fail(f"decode_v4[big]: block {i} does not round-trip")
-    mib = [s >> 20 for s in sizes]
-    print(f"  decode_v4[big]: {len(big)} blocks of {mib} MiB, equal to plain")
-    # timing at decode_v4's main-path shape: blocks over 64 KiB
-    moved = int(bargs[1].sum()) + int(want[1].sum())
-    report["decode_v4"].update(
-        ms=cuda_ms(lambda: dv4.decode_v4(*dev, limit)), plain_ms=plain_ms,
-        bound_ms=moved / HBM_BYTES_PER_S * 1e3,
-        shape=" + ".join(f"{len(names[:3])} x {m} MiB" for m in mib) + " blocks")
+        if want[0][i, : len(r)].numpy().tobytes() != r:
+            fail(f"decoders[big]: block {i} does not round-trip")
+    st = want[2].numpy()
+    kinds = {int(s): int((st == s).sum()) for s in np.unique(st)}
+    if set(kinds) != {0, 4}:
+        fail(f"decoders[big]: expected valid blocks and invalid offsets, got {kinds}")
+    dev = [a.cuda() for a in bargs]
+    for name in ("decode_v4", "decode_big", "decode_v3"):
+        got = decoders[name](*dev, limit)
+        torch.cuda.synchronize()
+        report[name]["err"] = max(report[name]["err"], same(f"{name}[big]", got, want))
+        print(f"  {name}[big]: {len(blocks)} blocks of 256 KiB to 4 MiB (statuses {kinds}), "
+              f"equal to plain")
+    del dev, got
+
+    # timing at the big-block shape: decode_v4 and decode_big are reported
+    # at it, decode_v3 printed
+    sizes = sizes[1:]
+    skip = len(names[:3])  # the 256 KiB blocks come first
+    targs = tensors(big_comp[skip:], [b""] * len(big_comp[skip:]))
+    _, plain_ms = plain(targs, limit)
+    moved = int(targs[1].sum()) + sum(len(r) for r in big_raw[skip:])
+    dev = [a.cuda() for a in targs]
+    shape = " + ".join(f"{len(names[:3])} x {s >> 20} MiB" for s in sizes) + " blocks"
+    at_big = {name: cuda_ms(lambda fn=decoders[name]: fn(*dev, limit))
+              for name in ("decode_v4", "decode_big", "decode_v3")}
+    for name in ("decode_v4", "decode_big"):
+        report[name].update(ms=at_big[name], plain_ms=plain_ms,
+                            bound_ms=moved / HBM_BYTES_PER_S * 1e3, shape=shape)
+    print(f"  at the big-block shape ({shape}): "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in at_big.items()))
     return report
 
 
@@ -338,35 +477,69 @@ def check_host_paths(members):
     print(f"  xxh32: C equal to Python; frame of {len(sample):,d} B: card equal to plain")
 
 
-def profile_round_trip(members):
-    """Host-side breakdown (cProfile) of the largest member's round trip,
-    kernels on the card: where the wall time outside the kernels goes."""
+def profile_calls(title, calls):
+    """Host-side breakdown (cProfile) of each call, kernels on the card:
+    where the wall time outside the kernels goes; then the device's share."""
     import cProfile
     import io
     import pstats
 
-    import lz4tpu_torch as lt
-
-    name = max(members, key=lambda m: len(members[m]))
-    data = members[name]
-    frame = lt.compress_frame_parallel(data, 65536, content_checksum=True)
-    for label, fn in (
-        ("compress", lambda: lt.compress_frame_parallel(data, 65536, content_checksum=True)),
-        ("decompress", lambda: lt.decompress_frame_parallel(frame)),
-    ):
+    for label, fn in calls:
+        fn()  # warm: allocator, library
         prof = cProfile.Profile()
         prof.enable()
         fn()
         prof.disable()
         text = io.StringIO()
         pstats.Stats(prof, stream=text).sort_stats("tottime").print_stats(12)
-        print(f"== profile: {label} of {name} ({len(data):,d} B), by own time")
+        print(f"== profile: {label} of {title}, by own time")
         body = text.getvalue().splitlines()
         start = next(i for i, line in enumerate(body) if "ncalls" in line)
         for line in body[start:]:
             if line.strip():
                 print("  " + line.rstrip()[:150])
         device_share(label, fn)
+
+
+def profile_round_trip(members):
+    """The largest member's round trip at 64 KiB independent blocks."""
+    import lz4tpu_torch as lt
+
+    name = max(members, key=lambda m: len(members[m]))
+    data = members[name]
+    frame = lt.compress_frame_parallel(data, 65536, content_checksum=True)
+    profile_calls(f"{name} ({len(data):,d} B), 64 KiB independent blocks", (
+        ("compress", lambda: lt.compress_frame_parallel(data, 65536, content_checksum=True)),
+        ("decompress", lambda: lt.decompress_frame_parallel(frame)),
+    ))
+
+
+def profile_big_and_linked(members):
+    """The largest member through phase 4: (a) 4 MiB independent blocks,
+    (b) its 1 MiB segments as linked frames of 64 KiB blocks, (c) one
+    linked frame of 4 MiB blocks."""
+    import lz4tpu_torch as lt
+
+    name = max(members, key=lambda m: len(members[m]))
+    data = members[name]
+    title = f"{name} ({len(data):,d} B)"
+    frame = lt.compress_frame_parallel(data, 4 << 20)
+    profile_calls(title + ", (a) 4 MiB independent blocks", (
+        ("compress", lambda: lt.compress_frame_parallel(data, 4 << 20)),
+        ("decompress", lambda: lt.decompress_frame_parallel(frame)),
+    ))
+    segments = [data[i : i + SEGMENT] for i in range(0, len(data), SEGMENT)]
+    frames = [lt.compress_frame_parallel(seg, 65536, parallel_linked=True) for seg in segments]
+    profile_calls(title + f", (b) {len(segments)} linked frames of 64 KiB blocks", (
+        ("compress", lambda: [lt.compress_frame_parallel(seg, 65536, parallel_linked=True)
+                              for seg in segments]),
+        ("decompress", lambda: lt.decompress_frames_parallel(frames)),
+    ))
+    linked = lt.compress_frame_parallel(data, 4 << 20, parallel_linked=True)
+    profile_calls(title + ", (c) one linked frame of 4 MiB blocks", (
+        ("compress", lambda: lt.compress_frame_parallel(data, 4 << 20, parallel_linked=True)),
+        ("decompress", lambda: lt.decompress_frames_parallel([linked])),
+    ))
 
 
 def device_share(label, fn):
@@ -399,47 +572,99 @@ def device_share(label, fn):
         print(f"  {ms:9.3f} ms {count:5d} x {key[:90]}")
 
 
-def frame_stats(frame: bytes):
-    """(compressed payload bytes, stored payload bytes, compressed-block
-    count, stored-block count) of a frame made by this package's writer."""
-    pos = 6
+def frame_blocks(frame: bytes):
+    """[(compressed?, payload offset, payload length)] of a frame made by
+    this package's writer."""
     flg = frame[4]
-    pos += 8 if flg & 0x08 else 0
-    pos += 4 if flg & 0x01 else 0
-    pos += 1
-    comp_bytes = stored_bytes = nc = ns = 0
+    pos = 6 + (8 if flg & 0x08 else 0) + (4 if flg & 0x01 else 0) + 1
+    blocks = []
     while True:
         ln = int.from_bytes(frame[pos : pos + 4], "little")
         pos += 4
         if ln == 0:
-            return comp_bytes, stored_bytes, nc, ns
-        if ln & (1 << 31):
-            ns += 1
-            stored_bytes += ln & 0x7FFFFFFF
-        else:
-            nc += 1
-            comp_bytes += ln
+            return blocks
+        blocks.append((not ln & (1 << 31), pos, ln & 0x7FFFFFFF))
         pos += (ln & 0x7FFFFFFF) + (4 if flg & 0x10 else 0)
+
+
+def frame_stats(frame: bytes):
+    """(compressed payload bytes, stored payload bytes, compressed-block
+    count, stored-block count) of a frame made by this package's writer."""
+    blocks = frame_blocks(frame)
+    comp = [n for c, _, n in blocks if c]
+    stored = [n for c, _, n in blocks if not c]
+    return sum(comp), sum(stored), len(comp), len(stored)
+
+
+def kernel_modules():
+    from lz4tpu_torch.kernels import compress as kc
+    from lz4tpu_torch.kernels import decode128 as d128
+    from lz4tpu_torch.kernels import decodebig as dbig
+    from lz4tpu_torch.kernels import decompress_v3 as dv3
+    from lz4tpu_torch.kernels import decompress_v4 as dv4
+
+    return (kc, d128, dv4, dbig, dv3)
+
+
+class PathMeter:
+    """Launch counts, kernel time and least traffic of one driven path:
+    every kernel's count is set to 0 when the path begins and read when it
+    ends, and a kernel the path must run fails the script if it never ran."""
+
+    def __init__(self, path: str, needed):
+        self.path = path
+        self.needed = needed
+        self.stats = {m.KERNEL.name: m.KERNEL for m in kernel_modules()}
+        self.traffic = {name: 0 for name in self.stats}  # bytes each kernel must move
+        for k in self.stats.values():
+            k.reset(timing=True)
+
+    def compressed(self, frame, n_in, row_extra=0):
+        """Account one frame's compress launch: input rows (``row_extra``
+        bytes of window or dictionary each), output, tables in and out."""
+        comp_bytes, _, nc, ns = frame_stats(frame)
+        self.traffic["compress"] += (n_in + (nc + ns) * row_extra + comp_bytes
+                                     + 2 * 4 * 4096 * (nc + ns))
+
+    def decoded(self, kernel, frame, n_out, prefix_bytes=0):
+        """Account one frame's decode: compressed blocks in, their output
+        and the prefix bytes they may read."""
+        comp_bytes, stored, _, _ = frame_stats(frame)
+        self.traffic[kernel] += comp_bytes + n_out - stored + prefix_bytes
+
+    def kernel_ms(self):
+        return {name: k.elapsed_ms() for name, k in self.stats.items()}
+
+    def finish(self):
+        import torch
+
+        torch.cuda.synchronize()
+        report = {}
+        for name, k in self.stats.items():
+            report[name] = dict(launches=k.launches, main_ms=k.elapsed_ms(),
+                                main_bound_ms=self.traffic[name] / HBM_BYTES_PER_S * 1e3)
+            k.reset()
+        for name in self.needed:
+            if report[name]["launches"] <= 0:
+                fail(f"{self.path}: kernel {name} was never launched")
+        print(f"  {self.path}: " + ", ".join(
+            f"{n} {r['launches']} launches {r['main_ms']:.2f} ms"
+            for n, r in report.items() if r["launches"]))
+        return report
 
 
 def phase_main(members, scale: float):
     import torch
 
     import lz4tpu_torch as lt
-    from lz4tpu_torch.kernels import compress as kc
-    from lz4tpu_torch.kernels import decode128 as d128
-    from lz4tpu_torch.kernels import decompress_v4 as dv4
 
-    kernels = (kc.KERNEL, d128.KERNEL, dv4.KERNEL)
-    traffic = {k.name: 0 for k in kernels}  # bytes each kernel must move
-    for k in kernels:
-        k.reset(timing=True)
+    meter = PathMeter("64 KiB independent blocks", ("compress", "decode128", "decode_v4", "decode_big"))
     total_in = total_out = 0
     t_comp = t_dec = 0.0
     print(f"main path: scale {scale}, 64 KiB blocks, content checksum")
     for name, data in members.items():
         torch.cuda.synchronize()
-        ms0 = {k.name: k.elapsed_ms() for k in kernels}
+        ms0 = meter.kernel_ms()
         t0 = time.perf_counter()
         frame = lt.compress_frame_parallel(data, block_size=65536, content_checksum=True)
         torch.cuda.synchronize()
@@ -449,53 +674,150 @@ def phase_main(members, scale: float):
         t2 = time.perf_counter()
         if back != data:
             fail(f"main path: {name} does not round-trip")
-        comp_bytes, stored, nc, ns = frame_stats(frame)
-        traffic["compress"] += len(data) + comp_bytes + 2 * 4 * 4096 * (nc + ns)
-        traffic["decode128"] += comp_bytes + len(data) - stored
+        _, _, nc, ns = frame_stats(frame)
+        meter.compressed(frame, len(data))
+        meter.decoded("decode128", frame, len(data))
         total_in += len(data)
         total_out += len(frame)
         t_comp += t1 - t0
         t_dec += t2 - t1
-        ms = {k.name: k.elapsed_ms() - ms0[k.name] for k in kernels}
+        ms = {k: v - ms0[k] for k, v in meter.kernel_ms().items()}
         print(f"  {name:8s} {len(data):>11,d} B ratio {len(frame) / len(data):.4f} "
               f"compress {len(data) / (t1 - t0) / 1e6:8.1f} MB/s "
               f"decompress {len(data) / (t2 - t1) / 1e6:8.1f} MB/s "
               f"kernel ms: compress {ms['compress']:.2f} decode128 {ms['decode128']:.2f} "
               f"({nc} blocks decoded, {ns} stored)")
-    # a dictionary frame (shared 64 KiB prefix) and a 4 MiB-block frame (v4)
+    # a dictionary frame (shared 64 KiB prefix) and a 4 MiB-block frame
+    # (decode_big; decompress_v4 with lane_kernel=False)
     names = list(members)
     dic = members[names[0]][-65536:]
     data = members[names[7]]
     frame = lt.compress_frame_parallel(data, 65536, dictionary=dic, block_checksums=True)
     if lt.decompress_frame_parallel(frame, dictionary=dic) != data:
         fail("main path: dictionary frame does not round-trip")
-    comp_bytes, stored, nc, ns = frame_stats(frame)
-    traffic["compress"] += len(data) + (nc + ns) * len(dic) + comp_bytes + 2 * 4 * 4096 * (nc + ns)
-    traffic["decode128"] += comp_bytes + len(data) - stored + len(dic)
+    meter.compressed(frame, len(data), row_extra=len(dic))
+    meter.decoded("decode128", frame, len(data), prefix_bytes=len(dic))
     print(f"  dictionary frame: {names[7]} with a 64 KiB dictionary, ratio "
           f"{len(frame) / len(data):.4f}, round trip equal")
     data = members[names[-1]]
     frame = lt.compress_frame_parallel(data, 4 << 20)
     if lt.decompress_frame_parallel(frame) != data:
-        fail("main path: 4 MiB-block frame does not round-trip")
-    comp_bytes, stored, nc, ns = frame_stats(frame)
-    traffic["compress"] += len(data) + comp_bytes + 2 * 4 * 4096 * (nc + ns)
-    traffic["decode_v4"] += comp_bytes + len(data) - stored
+        fail("main path: 4 MiB-block frame does not round-trip on decode_big")
+    if lt.decompress_frame_parallel(frame, lane_kernel=False) != data:
+        fail("main path: 4 MiB-block frame does not round-trip on decompress_v4")
+    meter.compressed(frame, len(data))
+    meter.decoded("decode_big", frame, len(data))
+    meter.decoded("decode_v4", frame, len(data))
     print(f"  4 MiB-block frame: {names[-1]}, ratio {len(frame) / len(data):.4f}, "
-          f"round trip equal")
-    torch.cuda.synchronize()
-    report = {}
-    for k in kernels:
-        report[k.name] = dict(launches=k.launches, main_ms=k.elapsed_ms(),
-                              main_bound_ms=traffic[k.name] / HBM_BYTES_PER_S * 1e3)
-        k.reset()
-        if report[k.name]["launches"] <= 0:
-            fail(f"main path: kernel {k.name} was never launched")
+          f"round trip equal on decode_big and on decompress_v4")
+    report = meter.finish()
     print(f"main path total: {total_in:,d} B in, ratio {total_out / total_in:.4f}, "
           f"compress {total_in / t_comp / 1e6:.1f} MB/s, "
           f"decompress {total_in / t_dec / 1e6:.1f} MB/s (host wall, incl. transfers)")
-    print("launches: " + ", ".join(f"{n}={r['launches']}" for n, r in report.items()))
     return report
+
+
+def phase_big_and_linked(members):
+    """Big blocks and linked frames over the whole corpus; returns one
+    report per part."""
+    import torch
+
+    import lz4tpu_torch as lt
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def rates(label, n_in, n_out, t_comp, t_dec):
+        print(f"  {label}: {n_in:,d} B in, ratio {n_out / n_in:.4f}, "
+              f"compress {n_in / t_comp / 1e6:.1f} MB/s, decompress {n_in / t_dec / 1e6:.1f} MB/s "
+              f"(host wall, incl. transfers)")
+
+    total = sum(map(len, members.values()))
+    reports = {}
+
+    # (a) independent frames of 4 MiB blocks
+    meter = PathMeter("(a) big blocks", ("compress", "decode_big"))
+    n_out = 0
+    t_comp = t_dec = 0.0
+    for name, data in members.items():
+        frame, dt = wall(lambda: lt.compress_frame_parallel(data, 4 << 20, content_checksum=True))
+        t_comp += dt
+        back, dt = wall(lambda: lt.decompress_frame_parallel(frame))
+        t_dec += dt
+        if back != data:
+            fail(f"(a) big blocks: {name} does not round-trip")
+        meter.compressed(frame, len(data))
+        meter.decoded("decode_big", frame, len(data))
+        n_out += len(frame)
+    rates("(a) 4 MiB independent blocks", total, n_out, t_comp, t_dec)
+    reports["a"] = meter.finish()
+
+    # (b) 1 MiB segments as linked frames of 64 KiB blocks, decoded in waves
+    segments = [data[i : i + SEGMENT] for data in members.values()
+                for i in range(0, len(data), SEGMENT)]
+    meter = PathMeter("(b) linked frames", ("compress", "decode128"))
+    frames, t_comp = wall(lambda: [lt.compress_frame_parallel(seg, 65536, parallel_linked=True)
+                                   for seg in segments])
+    back, t_dec = wall(lambda: lt.decompress_frames_parallel(frames))
+    if back != segments:
+        fail("(b) linked frames: the segments do not round-trip")
+    for seg, frame in zip(segments, frames):
+        blocks = frame_blocks(frame)
+        windows = sum(65536 for k, (c, _, _) in enumerate(blocks) if c and k)
+        meter.compressed(frame, len(seg) + 65536 * (len(blocks) - 1))  # rows carry windows
+        meter.decoded("decode128", frame, len(seg), prefix_bytes=windows)
+    linked_total = sum(map(len, frames))
+    rates(f"(b) {len(segments)} linked frames of 64 KiB blocks, "
+          f"{max(len(frame_blocks(f)) for f in frames)} waves", total, linked_total, t_comp, t_dec)
+    reports["b"] = meter.finish()
+    k = len(segments) // 2
+    if lt.decompress_frame(frames[k]) != segments[k]:
+        fail("(b) linked frames: the serial reader disagrees on one segment")
+    independent_total = sum(len(lt.compress_frame_parallel(seg, 65536)) for seg in segments)
+    print(f"  (b) linked {linked_total:,d} B against {independent_total:,d} B for the same "
+          f"segments as independent frames; serial reader equal on segment {k}")
+    if linked_total > independent_total:
+        fail("(b) linked frames are larger than independent frames of the same segments")
+
+    # (c) each member as one linked frame of 4 MiB blocks, decoded in waves
+    meter = PathMeter("(c) linked big blocks", ("compress", "decode_big"))
+    datas = list(members.values())
+    frames, t_comp = wall(lambda: [lt.compress_frame_parallel(d, 4 << 20, parallel_linked=True)
+                                   for d in datas])
+    back, t_dec = wall(lambda: lt.decompress_frames_parallel(frames))
+    if back != datas:
+        fail("(c) linked big blocks: the members do not round-trip")
+    for data, frame in zip(datas, frames):
+        blocks = frame_blocks(frame)
+        windows = sum(65536 for k, (c, _, _) in enumerate(blocks) if c and k)
+        meter.compressed(frame, len(data) + 65536 * (len(blocks) - 1))  # rows carry windows
+        meter.decoded("decode_big", frame, len(data), prefix_bytes=windows)
+    rates(f"(c) {len(frames)} linked frames of 4 MiB blocks, "
+          f"{max(len(frame_blocks(f)) for f in frames)} waves",
+          total, sum(map(len, frames)), t_comp, t_dec)
+    reports["c"] = meter.finish()
+
+    # (d) decompress_v3 through its own entry point: one member's 64 KiB blocks
+    meter = PathMeter("(d) v3 entry point", ("decode_v3",))
+    name = list(members)[7]
+    data = members[name]
+    frame = lt.compress_frame_parallel(data, 65536)
+    blocks = frame_blocks(frame)
+    payloads = [frame[pos : pos + n] for c, pos, n in blocks if c]
+    raws = [data[i * 65536 : (i + 1) * 65536] for i, (c, _, _) in enumerate(blocks) if c]
+    back, dt = wall(lambda: lt.decompress_blocks_v3(payloads, None, 65536))
+    if back != raws:
+        fail("(d) decompress_blocks_v3 does not return the member's blocks")
+    meter.compressed(frame, len(data))
+    meter.decoded("decode_v3", frame, len(data))
+    print(f"  (d) {len(payloads)} blocks of {name} through decompress_blocks_v3: "
+          f"{sum(map(len, raws)) / dt / 1e6:.1f} MB/s (host wall, incl. transfers)")
+    reports["d"] = meter.finish()
+    return reports
 
 
 def main() -> int:
@@ -503,7 +825,8 @@ def main() -> int:
     ap.add_argument("--scale", type=float, default=1.0,
                     help="Silesia stand-in scale for the main path (1.0 = 211,938,580 B)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, profile one member's round trip on the host")
+                    help="after each path, profile the largest member through it (host own "
+                         "time by function, device busy share)")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "lz4tpu_torch")):
         print("chip_smoke: lz4tpu_torch/ is not beside this script", file=sys.stderr)
@@ -516,12 +839,18 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    print("== phase 1: environment", flush=True)
+    def phase(title):
+        now = time.perf_counter()
+        if marks:
+            print(f"-- {marks[-1][0]}: {now - marks[-1][1]:.1f} s", flush=True)
+        marks.append((title, now))
+        if title:
+            print(f"== {title}", flush=True)
+
+    marks = []
+    phase("phase 1: environment")
     phase_env()
 
-    from lz4tpu_torch.kernels import compress as kc
-    from lz4tpu_torch.kernels import decode128 as d128
-    from lz4tpu_torch.kernels import decompress_v4 as dv4
     from lz4tpu_torch.utils import silesia
 
     scale = args.scale
@@ -530,7 +859,7 @@ def main() -> int:
     print(f"corpus: {sum(map(len, members.values())):,d} B at scale {scale} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
-    print("== phase 2: kernels against their plain versions", flush=True)
+    phase("phase 2: kernels against their plain versions")
     comp = check_compress(members)
     dec = check_decoders(members)
     check_host_paths(members)
@@ -538,22 +867,32 @@ def main() -> int:
     for name, r in checks.items():
         print(f"  {name}: {r['ms']:.3f} ms on the card, plain {r['plain_ms']:.1f} ms on the "
               f"host CPU, bound {r['bound_ms']:.4f} ms ({r['shape']})")
-    print("== phase 3: main path", flush=True)
-    main_report = phase_main(members, scale)
+    phase("phase 3: 64 KiB independent blocks")
+    paths = {"3": phase_main(members, scale)}
     if args.profile:
         profile_round_trip(members)
+    phase("phase 4: big blocks and linked frames")
+    paths.update(phase_big_and_linked(members))
+    if args.profile:
+        profile_big_and_linked(members)
+    phase("")
 
     rows = []
-    for mod in (kc, d128, dv4):
+    for mod in kernel_modules():
         name = mod.KERNEL.name
-        c, m = checks[name], main_report[name]
+        c = checks[name]
+        on = {path: r[name] for path, r in paths.items() if r[name]["launches"]}
         rows.append({
             "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
-            "launches": m["launches"], "max_abs_err": c["err"], "ms": c["ms"],
-            "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"], "bound_by": "bytes",
-            "library_ms": None, "shape": c["shape"], "main_ms": m["main_ms"],
-            "main_bound_ms": m["main_bound_ms"],
+            "launches": sum(r["launches"] for r in on.values()), "max_abs_err": c["err"],
+            "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+            "bound_by": "bytes", "library_ms": None, "shape": c["shape"],
+            "main_ms": sum(r["main_ms"] for r in on.values()),
+            "main_bound_ms": sum(r["main_bound_ms"] for r in on.values()),
+            "paths": on,
         })
+        if not rows[-1]["launches"]:
+            fail(f"kernel {name} was launched on no path")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

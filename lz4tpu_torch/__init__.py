@@ -9,13 +9,15 @@ hand for Hopper (``csrc/``, built by ``nvcc`` at first use, see
 Every entry point takes ``device=None``, meaning ``"cuda"``; without a card
 that raises.  ``device="cpu"`` runs each kernel's plain version instead.
 
-* frames, whole-frame on the device: ``compress_frame_parallel``,
-  ``decompress_frame_parallel``;
+* frames, whole-frame on the device: ``compress_frame_parallel``
+  (independent or ``parallel_linked``), ``decompress_frame_parallel``, and
+  ``decompress_frames_parallel`` (many frames, linked ones in waves);
 * frames, streaming: ``CompressionSettings``, ``LZ4FrameReader``,
   ``decompress_frame``;
 * raw blocks: ``compress_blocks``, ``compress_block_cuda``,
   ``decompress_blocks``, ``decompress_block_cuda``,
-  ``decompress_blocks_128``, ``decompress_blocks_v4``;
+  ``decompress_blocks_128``, ``decompress_blocks_v4``,
+  ``decompress_blocks_big``, ``decompress_blocks_v3``;
 * encoder-table state shared with the JAX package: ``tables_from_jax``,
   ``tables_to_numpy``.
 """
@@ -31,9 +33,15 @@ from .frame.errors import (
 from .frame.header import MAGIC, WINDOW_SIZE
 from .kernels.compress import compress_block_cuda, compress_blocks
 from .kernels.decode128 import decompress_blocks_128
+from .kernels.decodebig import decompress_blocks_big
 from .kernels.decompress import decompress_block_cuda, decompress_blocks
+from .kernels.decompress_v3 import decompress_blocks_v3
 from .kernels.decompress_v4 import decompress_blocks_v4
-from .parallel.pipeline import compress_frame_parallel, decompress_frame_parallel
+from .parallel.pipeline import (
+    compress_frame_parallel,
+    decompress_frame_parallel,
+    decompress_frames_parallel,
+)
 from .spec.block import BlockTooBig, DecodeError, Incompressible
 from .state import tables_from_jax, tables_to_numpy
 
@@ -43,12 +51,15 @@ __all__ = [
     "decompress_frame",
     "compress_frame_parallel",
     "decompress_frame_parallel",
+    "decompress_frames_parallel",
     "compress_blocks",
     "compress_block_cuda",
     "decompress_blocks",
     "decompress_block_cuda",
     "decompress_blocks_128",
     "decompress_blocks_v4",
+    "decompress_blocks_big",
+    "decompress_blocks_v3",
     "tables_from_jax",
     "tables_to_numpy",
     "DecodeError",

@@ -1,6 +1,6 @@
-// Shared sequence parser and copy loops of the two CUDA LZ4 block decoders
-// (decode128.cu: one warp per block; decode_v4.cu: one thread block per
-// block).  Semantics: reference src/raw/decompress.rs:59-138, stated in
+// Shared sequence parser and copy loops of the CUDA LZ4 block decoders
+// (decode128.cu and decode_v3.cu: one warp per block; decode_v4.cu and
+// decode_big.cu: one thread block per block).  Semantics: reference src/raw/decompress.rs:59-138, stated in
 // the port's plain version (lz4tpu_torch/kernels/decode128.py
 // decode_plain):
 //
@@ -42,16 +42,19 @@ struct Seq {
 };
 
 // Parse the sequence at `pos` given output position `op`.  Reads only
-// comp[pos .. n).
-__device__ __forceinline__ Seq parse_seq(const uint8_t* __restrict__ comp, long long n,
-                                         long long pos, long long op, long long plen,
-                                         long long limit, long long out_cap) {
+// bytes pos .. n-1 of the compressed stream, each through `comp(p)`: a
+// plain pointer for the decoders that parse from device memory, a staged
+// window with a fallback for the ones that read ahead into shared memory.
+template <class Reader>
+__device__ __forceinline__ Seq parse_seq_with(const Reader& comp, long long n, long long pos,
+                                              long long op, long long plen, long long limit,
+                                              long long out_cap) {
     Seq q;
     q.lit_len = 0;
     q.match_len = 0;
     q.offset = 0;
     q.status = OK;
-    int token = comp[pos++];
+    int token = comp(pos++);
     long long lit = token >> 4;
     if (lit == 0xF) {
         for (;;) {
@@ -59,7 +62,7 @@ __device__ __forceinline__ Seq parse_seq(const uint8_t* __restrict__ comp, long 
                 q.status = ERR_UNEXPECTED_END;
                 return q;
             }
-            int more = comp[pos++];
+            int more = comp(pos++);
             lit += more;
             if (more != 0xFF) break;
         }
@@ -81,7 +84,7 @@ __device__ __forceinline__ Seq parse_seq(const uint8_t* __restrict__ comp, long 
         q.next_pos = pos;
         return q;
     }
-    long long offset = (long long)comp[pos] | ((long long)comp[pos + 1] << 8);
+    long long offset = (long long)comp(pos) | ((long long)comp(pos + 1) << 8);
     pos += 2;
     long long ml = token & 0xF;
     if (ml == 0xF) {
@@ -90,7 +93,7 @@ __device__ __forceinline__ Seq parse_seq(const uint8_t* __restrict__ comp, long 
                 q.status = ERR_UNEXPECTED_END;
                 return q;
             }
-            int more = comp[pos++];
+            int more = comp(pos++);
             ml += more;
             if (more != 0xFF) break;
         }
@@ -113,6 +116,17 @@ __device__ __forceinline__ Seq parse_seq(const uint8_t* __restrict__ comp, long 
     q.match_len = ml;
     q.next_pos = pos;
     return q;
+}
+
+struct PtrReader {
+    const uint8_t* __restrict__ p;
+    __device__ __forceinline__ int operator()(long long i) const { return p[i]; }
+};
+
+__device__ __forceinline__ Seq parse_seq(const uint8_t* __restrict__ comp, long long n,
+                                         long long pos, long long op, long long plen,
+                                         long long limit, long long out_cap) {
+    return parse_seq_with(PtrReader{comp}, n, pos, op, plen, limit, out_cap);
 }
 
 // literals: out[op + j] = comp[src + j], j = tid, tid + nthreads, ...

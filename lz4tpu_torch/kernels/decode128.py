@@ -65,6 +65,13 @@ def check_decode_args(name, comp, comp_len, prefix, prefix_len, limit, out_capac
         raise ValueError(f"{name}: out_capacity must hold limit + comp width")
 
 
+def check_staged_capacity(name, out_capacity):
+    """The decoders that stage output in shared memory store it in aligned
+    16-byte vectors and keep positions in 32 bits."""
+    if out_capacity % 16 or out_capacity >= 1 << 31:
+        raise ValueError(f"{name}: out_capacity must be a multiple of 16 below 2 GiB")
+
+
 def decode128(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None):
     """Decode a batch of blocks of at most 64 KiB; the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
@@ -82,7 +89,8 @@ def decode128(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None)
 
 
 def launch_decoder(stats, fn_name, comp, comp_len, prefix, prefix_len, limit, out_capacity):
-    """Allocate outputs and launch one of the two CUDA decoders."""
+    """Allocate outputs and launch one of the CUDA decoders (they share
+    one C signature)."""
     lib = build.load()
     n_blocks = comp.shape[0]
     out = torch.zeros((n_blocks, out_capacity), dtype=torch.uint8, device=comp.device)
@@ -174,7 +182,7 @@ def decode_block_plain(comp: bytes, prefix: bytes, limit: int, out_capacity: int
 
 
 def decode_plain(comp, comp_len, prefix, prefix_len, limit: int, out_capacity: int):
-    """Plain version of both decoders on CPU tensors (same contract)."""
+    """Plain version of every decoder on CPU tensors (same contract)."""
     n_blocks, width = comp.shape
     comp_np = comp.numpy()
     pre_np = prefix.numpy()
@@ -200,14 +208,23 @@ def decode_plain(comp, comp_len, prefix, prefix_len, limit: int, out_capacity: i
 # ---------------------------------------------------------------------------
 
 
-def run_batch(decoder, blocks, block_maxsize: int, prefixes, device):
-    """Pack, decode on ``device`` with ``decoder`` (``decode128`` or
-    ``decode_v4``), and return (status, out_len, out tensor) with the
-    small arrays already on the host."""
-    comp, comp_len = pack_rows(blocks, device)
-    prefix, prefix_len = pack_prefixes(prefixes, len(blocks), device)
+def decompress_batch(decoder, blocks, block_maxsize: int, prefixes, device):
+    """The bytes-level batch API of every decoder: pack, one launch of
+    ``decoder`` (``decode128``, ``decode_v4``, ``decode_big`` or
+    ``decode_v3``) on ``device``, ``DecodeError`` for the first failing block, else the
+    decoded blocks as a list of byte strings."""
+    dev = resolve_device(device)
+    blocks = [bytes(b) for b in blocks]
+    if not blocks:
+        return []
+    comp, comp_len = pack_rows(blocks, dev)
+    prefix, prefix_len = pack_prefixes(prefixes, len(blocks), dev)
     out, out_len, status = decoder(comp, comp_len, prefix, prefix_len, block_maxsize)
-    return status.cpu().numpy(), out_len.cpu().numpy(), out
+    out_len = out_len.cpu().numpy()
+    bad = check_decoded(status.cpu().numpy(), out_len)
+    if bad is not None:
+        raise bad[1]
+    return fetch_rows(out, out_len, np.ones(len(blocks), bool))
 
 
 def decompress_blocks_128(blocks, block_maxsize: int = 1 << 14, prefixes=None, device=None):
@@ -216,13 +233,4 @@ def decompress_blocks_128(blocks, block_maxsize: int = 1 << 14, prefixes=None, d
     (optional, per block): dictionary / carry-over window bytes that match
     offsets may reach back into (only the trailing 64 KiB is
     addressable)."""
-    dev = resolve_device(device)
-    blocks = [bytes(b) for b in blocks]
-    if not blocks:
-        return []
-    status, out_len, out = run_batch(decode128, blocks, block_maxsize, prefixes, dev)
-    bad = check_decoded(status, out_len)
-    if bad is not None:
-        raise bad[1]
-    return fetch_rows(out, out_len, np.ones(len(blocks), bool))
-
+    return decompress_batch(decode128, blocks, block_maxsize, prefixes, device)

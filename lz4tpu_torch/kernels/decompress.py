@@ -2,9 +2,11 @@
 ``lz4tpu/kernels/decompress.py``):
 
 * ``decompress_blocks(blocks, prefixes, block_maxsize)`` — batched decode
-  with the JAX package's routing: a call with at least 24 blocks and
-  ``block_maxsize`` <= 64 KiB goes to ``decode128``, everything else to
-  the per-block ``decompress_v4`` decoder;
+  with the JAX package's routing: ``block_maxsize`` over 64 KiB goes to
+  ``decode_big`` (what ``lz4tpu/parallel/pipeline.py:1151-1196`` does on
+  the TPU), a call with at least 24 blocks of at most 64 KiB to
+  ``decode128``, everything else to the per-block ``decompress_v4``
+  decoder;
 * ``decompress_block_cuda`` — the single-block adapter of the streaming
   frame API.
 
@@ -28,9 +30,12 @@ def decompress_blocks(blocks, prefixes=None, block_maxsize: int = 1 << 16, devic
     trailing 64 KiB is addressable).  Raises ``DecodeError`` for the first
     failed block."""
     from .decode128 import decompress_blocks_128
+    from .decodebig import decompress_blocks_big
     from .decompress_v4 import decompress_blocks_v4
 
-    if block_maxsize <= MAX_BLOCK and len(blocks) >= MIN_LANE_BATCH:
+    if block_maxsize > MAX_BLOCK:
+        return decompress_blocks_big(blocks, block_maxsize, prefixes, device=device)
+    if len(blocks) >= MIN_LANE_BATCH:
         return decompress_blocks_128(blocks, block_maxsize, prefixes, device=device)
     return decompress_blocks_v4(blocks, prefixes, block_maxsize, device=device)
 

@@ -1,21 +1,18 @@
 """Per-block decoder for blocks of any size: the CUDA kernel (one thread
 block per LZ4 block), its plain version, and the bytes-level batch API.
 
-Counterpart of ``lz4tpu/kernels/decompress_v4.py``: the decoder for every
-block that ``decode128`` does not take — blocks over 64 KiB (until the
-decodebig counterpart arrives, 256 KiB-4 MiB blocks too) and batches too
-small for the lane path.  The TPU version's ``V4_MAX_COMP``/``V4_MAX_OUT``
+Counterpart of ``lz4tpu/kernels/decompress_v4.py``: the decoder for
+batches too small for the lane path and for ``lane_kernel=False``.  Blocks
+over 64 KiB go to ``decodebig.decode_big`` by default; this kernel takes
+them too when it is asked to.  The TPU version's ``V4_MAX_COMP``/``V4_MAX_OUT``
 limits were SMEM/VMEM workarounds and have no counterpart: comp and output
 live in device memory.  Tensor contract: the same as ``decode128``.
 """
 
 from __future__ import annotations
 
-import numpy as np
-
-from ..runtime import KernelStats, resolve_device, round_up
-from .decode128 import check_decode_args, decode_plain, launch_decoder, run_batch
-from .pack import check_decoded, fetch_rows
+from ..runtime import KernelStats, round_up
+from .decode128 import check_decode_args, decode_plain, decompress_batch, launch_decoder
 
 KERNEL = KernelStats("decode_v4")
 SOURCE = "lz4tpu_torch/csrc/decode_v4.cu"
@@ -40,12 +37,4 @@ def decode_v4(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None)
 def decompress_blocks_v4(blocks, prefixes=None, block_maxsize: int = 1 << 16, device=None):
     """Batch decode in one launch; raises ``DecodeError`` for the first
     failing block.  Any comp or output size that fits in device memory."""
-    dev = resolve_device(device)
-    blocks = [bytes(b) for b in blocks]
-    if not blocks:
-        return []
-    status, out_len, out = run_batch(decode_v4, blocks, block_maxsize, prefixes, dev)
-    bad = check_decoded(status, out_len)
-    if bad is not None:
-        raise bad[1]
-    return fetch_rows(out, out_len, np.ones(len(blocks), bool))
+    return decompress_batch(decode_v4, blocks, block_maxsize, prefixes, device)

@@ -58,10 +58,7 @@ def fetch_rows(out: torch.Tensor, out_len: np.ndarray, keep: np.ndarray):
     where not kept), compacted on the device and copied back at once."""
     lens = np.where(keep, out_len, 0).astype(np.int64)
     if out.is_cuda:
-        width = out.shape[1]
-        lens_dev = torch.from_numpy(lens).to(out.device)
-        mask = torch.arange(width, device=out.device)[None, :] < lens_dev[:, None]
-        flat = out[mask].cpu().numpy()
+        flat = compact_rows(out, lens).cpu().numpy()
     else:
         flat = np.concatenate([out[i, : lens[i]].numpy() for i in range(len(lens))] or
                               [np.zeros(0, np.uint8)])
@@ -70,6 +67,13 @@ def fetch_rows(out: torch.Tensor, out_len: np.ndarray, keep: np.ndarray):
     for i in range(len(lens)):
         res.append(flat[ends[i] - lens[i] : ends[i]].tobytes() if keep[i] else None)
     return res
+
+
+def compact_rows(out: torch.Tensor, lens) -> torch.Tensor:
+    """``out[i, :lens[i]]`` for every row, concatenated into one flat
+    tensor on ``out``'s device."""
+    parts = [out[i, : int(n)] for i, n in enumerate(lens) if n]
+    return torch.cat(parts) if parts else out.new_zeros(0)
 
 
 def check_decoded(status: np.ndarray, out_len: np.ndarray, block_maxsize=None):

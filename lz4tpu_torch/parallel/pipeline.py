@@ -7,19 +7,28 @@ uint8 tensor (one H2D copy), each kernel runs once over all of them, the
 lengths and statuses come back first and then only the bytes needed (one
 D2H copy), and the host assembles the frame in order.
 
-* ``compress_frame_parallel`` — independent mode, byte-identical to the
+* ``compress_frame_parallel`` — independent mode is byte-identical to the
   streaming writer (and to the JAX package's ``compress_frame_parallel``)
   with the same settings, preset dictionary included: host-primed template
   table plus a per-block ``[dictionary | block]`` buffer parsed from
   ``cursor = len(dictionary)`` (reference ``framed/compress.rs:202-218``).
+  ``parallel_linked`` writes a linked-block frame whose blocks are still
+  compressed in one launch: block *i*'s row is ``[the 64 KiB of input
+  before it | block]``, parsed from ``cursor = 64 KiB`` with the table
+  primed in the kernel.  Its payloads equal the JAX package's scalar
+  linked path, not the serial writer's (whose table carries over).
 * ``decompress_frame_parallel`` — block scan with the streaming reader's
   hostile-input checks, block checksums, one ``decode128`` launch for
-  frames of 64 KiB blocks, one ``decompress_v4`` launch for larger blocks,
-  stored blocks passed through, and the content checksum.  A linked frame
-  goes to the port's serial reader, as in the JAX package.
+  frames of 64 KiB blocks, one ``decode_big`` launch for frames of larger
+  blocks (``decompress_v4`` when ``lane_kernel=False``), stored blocks
+  passed through, and the content checksum.  One linked frame is a serial
+  chain and goes to the port's serial reader, as in the JAX package.
+* ``decompress_frames_parallel`` — many frames at once: linked frames are
+  decoded in waves, wave ``w`` being block ``w`` of every linked frame in
+  one launch, each block with its own frame's 64 KiB carry-over window,
+  which stays on the device from wave to wave.
 
-``parallel_linked`` and ``lane_kernel=True`` compression are later slices
-of the port.
+``lane_kernel=True`` compression is a later slice of the port.
 """
 
 from __future__ import annotations
@@ -31,11 +40,12 @@ from ..frame.errors import BlockChecksumFail, BlockSizeOverflow, FrameChecksumFa
 from ..frame.header import INCOMPRESSIBLE, MAGIC, BlockDescriptor, Flags
 from ..kernels.compress import compress_batch
 from ..kernels.decode128 import MAX_BLOCK, decode128
+from ..kernels.decodebig import decode_big
 from ..kernels.decompress_v4 import decode_v4
-from ..kernels.pack import check_decoded, fetch_rows, pack_prefixes, pack_rows
-from ..kernels.status import STATUS_INCOMPRESSIBLE
+from ..kernels.pack import check_decoded, compact_rows, fetch_rows, pack_prefixes, pack_rows
+from ..kernels.status import OK, STATUS_INCOMPRESSIBLE, STATUS_TO_KIND
 from ..runtime import host_u8, resolve_device, round_up
-from ..spec.block import WINDOW_SIZE
+from ..spec.block import WINDOW_SIZE, DecodeError
 from ..spec.table import U32_SLOTS, U32Table, prime_u32_table
 from ..spec.xxhash32 import xxh32
 from ..utils.hashing import make_hasher
@@ -52,6 +62,28 @@ def _frame_header(flags: Flags, bd: BlockDescriptor, content_size, dictionary_id
         header.extend(int(dictionary_id).to_bytes(4, "little"))
     header.append((xxh32(header[4:]) >> 8) & 0xFF)
     return bytes(header)
+
+
+def _linked_rows(flat, n_blocks: int, block_size: int, dictionary, dev):
+    """Rows ``[the 64 KiB before block i | block i]`` of a linked frame, cut
+    on the device from the flat input with one strided gather, and each
+    row's cursor.  A block whose window is not full (block 0 without a
+    dictionary of at least 64 KiB) is laid out and parsed as an
+    independent block at cursor 0: an unprimed table's empty slots alias
+    buffer position 0, which is only safe to parse from there."""
+    w = WINDOW_SIZE
+    head = torch.zeros(w, dtype=torch.uint8, device=dev)
+    full_first = dictionary is not None and len(dictionary) >= w
+    if full_first:
+        head.copy_(torch.frombuffer(bytearray(dictionary[-w:]), dtype=torch.uint8))
+    padded = torch.cat([head, flat])
+    rows = padded.as_strided((n_blocks, w + block_size), (block_size, 1)).contiguous()
+    cursors = np.full(n_blocks, w, np.int32)
+    if not full_first:
+        rows[0, :block_size] = flat[:block_size]
+        rows[0, block_size:] = 0
+        cursors[0] = 0
+    return rows, cursors
 
 
 def compress_frame_parallel(
@@ -72,12 +104,16 @@ def compress_frame_parallel(
     Independent mode is byte-identical to the streaming writer
     (``frame.compress.CompressionSettings``) with the same settings,
     including a preset dictionary.
+
+    ``parallel_linked`` emits a valid linked-block frame: every block past
+    the first is parsed behind the 64 KiB of input before it, with the
+    table primed from that window in the kernel.  Only full windows are
+    primed, so with a dictionary only block 0's window is seeded, from the
+    dictionary's last 64 KiB, and a shorter dictionary leaves block 0 an
+    independent block.  The blocks stay ``block_size`` long (``lz4tpu``
+    shrinks them to fit the v5e's scalar memory; this card has no such
+    limit).
     """
-    if parallel_linked:
-        raise NotImplementedError(
-            "parallel_linked frame compression is a later slice of the port "
-            "(ROADMAP.md queue 1: parallel_linked compress)"
-        )
     if lane_kernel:
         raise NotImplementedError(
             "lane_kernel=True needs the compress128 counterpart, a later slice "
@@ -99,15 +135,23 @@ def compress_frame_parallel(
     flat = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
     flat[:n].copy_(src)
     rows = flat.view(n_blocks, block_size)
-    if d:
+    cursors = np.zeros(n_blocks, np.int32)
+    prime = np.zeros(n_blocks, np.int32)
+    if parallel_linked:
+        rows, cursors = _linked_rows(flat, n_blocks, block_size, dictionary, dev)
+        prime = cursors > 0
+    elif d:
+        cursors[:] = d
         buf = torch.empty((n_blocks, d + block_size), dtype=torch.uint8, device=dev)
         buf[:, :d] = torch.frombuffer(bytearray(dictionary), dtype=torch.uint8).to(dev)
         buf[:, d:] = rows
         rows = buf
     template = U32Table()
-    if d:
+    if d and not parallel_linked:
         # every template position sits behind the cursor (buffer coordinates
-        # equal dictionary coordinates), so the primed table is shared
+        # equal dictionary coordinates), so the primed table is shared.  Linked
+        # rows hold only the dictionary's tail, in other coordinates: their
+        # tables are primed in the kernel instead
         prime_u32_table(template, dictionary)
     tables = (
         torch.from_numpy(template.dict.view(np.int32).copy())
@@ -122,12 +166,12 @@ def compress_frame_parallel(
     caps = lens  # output capped at input size: incompressible fallback
     out, out_len, status, _ = compress_batch(
         rows,
-        i32(lens + d),
-        i32(np.full(n_blocks, d)),
+        i32(lens + cursors),
+        i32(cursors),
         i32(caps),
         i32(np.full(n_blocks, max(int(acceleration), 1))),
         i32(np.zeros(n_blocks)),
-        i32(np.zeros(n_blocks)),
+        i32(prime),
         tables,
         round_up(block_size + 16, 16),
     )
@@ -138,7 +182,7 @@ def compress_frame_parallel(
 
     # host-side ordered assembly (frame order)
     flags = Flags(
-        independent_blocks=True,
+        independent_blocks=not parallel_linked,
         block_checksums=block_checksums,
         content_checksum=content_checksum,
         content_size=with_content_size,
@@ -164,10 +208,11 @@ def compress_frame_parallel(
     return b"".join(parts)
 
 
-def _scan_frame(reader):
+def _scan_frame(reader, check=None):
     """The frame's block chain without decoding: [(compressed, payload,
     checksum)] and the trailer checksum, with the streaming reader's
-    hostile-input checks."""
+    hostile-input checks.  ``check(payload, checksum)``, if given, is called
+    for each block as it is read."""
     from ..frame.decompress import _read_exact
 
     blocks = []
@@ -191,7 +236,22 @@ def _scan_frame(reader):
             if reader.flags.block_checksums
             else None
         )
+        if check is not None and checksum is not None:
+            check(payload, checksum)
         blocks.append((compressed, payload, checksum))
+
+
+def _block_checksum_check(dev):
+    def check(payload, checksum):
+        if payload_xxh32(payload, device=dev) != checksum:
+            raise BlockChecksumFail("a block checksum was invalid")
+
+    return check
+
+
+def _check_content(data, expected_sum, dev):
+    if make_hasher(0, dev).update(data).digest() != expected_sum:
+        raise FrameChecksumFail("the frame checksum was invalid")
 
 
 def decompress_frame_parallel(
@@ -204,12 +264,13 @@ def decompress_frame_parallel(
     """Decompress one LZ4 frame with all independent blocks in one launch.
 
     A preset dictionary is shared by every block as its prefix.  Frames of
-    64 KiB blocks decode on ``decode128``; larger blocks on
-    ``decompress_v4``.  ``lane_kernel=False`` sends 64 KiB blocks to
-    ``decompress_v4`` too.  ``None`` (auto) and ``True`` are the same here:
-    ``lz4tpu`` resolves ``None`` to the lane decoder on one device, and this
-    function always runs on one device.
-    Linked-block frames go to the serial streaming reader.
+    64 KiB blocks decode on ``decode128``, frames of larger blocks on
+    ``decode_big``.  ``lane_kernel=False`` sends both to ``decompress_v4``.
+    ``None`` (auto) and ``True`` are the same here: ``lz4tpu`` resolves
+    ``None`` to the lane decoders on one device, and this function always
+    runs on one device.
+    One linked-block frame goes to the serial streaming reader (many of
+    them decode in parallel through ``decompress_frames_parallel``).
     """
     from ..frame.decompress import LZ4FrameReader
 
@@ -222,15 +283,23 @@ def decompress_frame_parallel(
 
     blocks, expected_sum = _scan_frame(reader)
     if verify_checksums and reader.flags.block_checksums:
+        check = _block_checksum_check(dev)
         for _, payload, checksum in blocks:
-            if payload_xxh32(payload, device=dev) != checksum:
-                raise BlockChecksumFail("a block checksum was invalid")
+            check(payload, checksum)
+    return _decode_independent(reader, blocks, expected_sum, dictionary, dev,
+                               verify_checksums, lane_kernel)
 
+
+def _decode_independent(reader, blocks, expected_sum, dictionary, dev, verify_checksums,
+                        lane_kernel=None) -> bytes:
+    """The scanned blocks of an independent frame, decoded in one launch."""
     to_decode = [p for c, p, _ in blocks if c]
     outputs = []
     if to_decode:
-        use_128 = reader.block_maxsize <= MAX_BLOCK and lane_kernel is not False
-        decoder = decode128 if use_128 else decode_v4
+        if lane_kernel is False:
+            decoder = decode_v4
+        else:
+            decoder = decode128 if reader.block_maxsize <= MAX_BLOCK else decode_big
         comp, comp_len = pack_rows(to_decode, dev)
         prefix, prefix_len = pack_prefixes(
             [dictionary] * len(to_decode) if dictionary else None, len(to_decode), dev
@@ -254,6 +323,132 @@ def decompress_frame_parallel(
     result = b"".join(parts)
 
     if verify_checksums and reader.flags.content_checksum and expected_sum is not None:
-        if make_hasher(0, dev).update(result).digest() != expected_sum:
-            raise FrameChecksumFail("the frame checksum was invalid")
+        _check_content(result, expected_sum, dev)
     return result
+
+
+def _push_windows(windows, wlen, slots, data, lens):
+    """Slide the carry-over windows of the frames ``slots`` over their new
+    bytes, on the device: ``windows[slots]`` becomes the last 64 KiB of
+    ``window | data[k, :lens[k]]`` (right-aligned rows) and ``wlen[slots]``
+    grows by ``lens``, up to 64 KiB.  ``windows`` and ``wlen`` are updated
+    in place."""
+    w = WINDOW_SIZE
+    lens = lens.to(torch.int64)
+    # byte j of the new window is byte t = lens - w + j of the data, or,
+    # where t < 0, byte w + t of the old window
+    t = lens[:, None] - w + torch.arange(w, device=data.device)[None, :]
+    new = torch.gather(data, 1, t.clamp(min=0))
+    old = torch.gather(windows[slots], 1, (t + w).clamp(max=w - 1))
+    windows[slots] = torch.where(t >= 0, new, old)
+    wlen[slots] = torch.clamp(wlen[slots] + lens.to(torch.int32), max=w)
+
+
+def decompress_frames_parallel(
+    frames,
+    device=None,
+    verify_checksums: bool = True,
+    dictionaries=None,
+) -> list[bytes]:
+    """Decode many LZ4 frames at once — the parallel answer to linked-block
+    frames, whose blocks form a serial chain within a frame (block ``i``
+    needs the last 64 KiB that block ``i-1`` decoded to).  The chains of
+    different frames do not depend on each other, so wave ``w`` decodes
+    block ``w`` of every linked frame that has one in one launch, each
+    block with its own frame's carry-over window as its prefix (the
+    dictionary's last 64 KiB before the first block).
+
+    The windows are one right-aligned ``(frames, 65536)`` tensor that is
+    updated on the device after each wave, a stored block's payload
+    included; each wave's output stays on the device until the end, and
+    only lengths and statuses come back per wave.  A wave is routed by the
+    largest ``block_maxsize`` in it, which is also its memory limit: up to
+    64 KiB to ``decode128``, larger to ``decode_big``.  A block that
+    decodes past its own frame's ``block_maxsize`` raises
+    ``BlockSizeOverflow``; content checksums are checked per frame at the
+    end.  Independent-block frames go through the one-launch decode of
+    ``decompress_frame_parallel``.
+    """
+    from ..frame.decompress import LZ4FrameReader
+
+    dev = resolve_device(device)
+    frames = [bytes(f) for f in frames]
+    if dictionaries is None:
+        dictionaries = [None] * len(frames)
+    if len(dictionaries) != len(frames):
+        raise ValueError(f"{len(dictionaries)} dictionaries for {len(frames)} frames")
+    dictionaries = [bytes(d or b"")[-WINDOW_SIZE:] for d in dictionaries]
+    check = _block_checksum_check(dev) if verify_checksums else None
+
+    results = [None] * len(frames)
+    linked = []  # (frame index, reader, blocks, expected checksum)
+    for fi, frame in enumerate(frames):
+        reader = LZ4FrameReader(frame, engine=dev)
+        blocks, expected = _scan_frame(reader, check)
+        if reader.flags.independent_blocks:
+            results[fi] = _decode_independent(reader, blocks, expected, dictionaries[fi], dev,
+                                              verify_checksums)
+        else:
+            linked.append((fi, reader, blocks, expected))
+    if not linked:
+        return results
+
+    windows, wlen = pack_rows([dictionaries[fi] for fi, *_ in linked], dev, align_right=True)
+    if windows.shape[1] < WINDOW_SIZE:
+        windows = torch.nn.functional.pad(windows, (WINDOW_SIZE - windows.shape[1], 0))
+    # per frame, in block order: host bytes of a stored block, or (wave's
+    # packed output, start, length) of a decoded one
+    pieces = [[] for _ in linked]
+    for w in range(max(len(blocks) for _, _, blocks, _ in linked)):
+        todo, stored = [], []
+        for slot, (_, _, blocks, _) in enumerate(linked):
+            if w < len(blocks):
+                (todo if blocks[w][0] else stored).append(slot)
+        if stored:
+            payloads = [linked[slot][2][w][1] for slot in stored]
+            for slot, payload in zip(stored, payloads):
+                pieces[slot].append(payload)
+            data, lens = pack_rows([p[-WINDOW_SIZE:] for p in payloads], dev)
+            _push_windows(windows, wlen, torch.tensor(stored, device=dev), data, lens)
+        if not todo:
+            continue
+        maxsizes = np.array([linked[slot][1].block_maxsize for slot in todo])
+        limit = int(maxsizes.max())
+        decoder = decode128 if limit <= MAX_BLOCK else decode_big
+        slots = torch.tensor(todo, device=dev)
+        comp, comp_len = pack_rows([linked[slot][2][w][1] for slot in todo], dev)
+        out, out_len, status = decoder(comp, comp_len, windows[slots], wlen[slots], limit)
+        _push_windows(windows, wlen, slots, out, out_len)
+        status = status.cpu().numpy()
+        lens = out_len.cpu().numpy()
+        if (status != OK).any():
+            raise DecodeError(STATUS_TO_KIND[int(status[status != OK][0])])
+        if (lens > maxsizes).any():
+            raise BlockSizeOverflow("a block decompressed to more data than allowed")
+        packed = compact_rows(out, lens)
+        ends = np.cumsum(lens)
+        for k, slot in enumerate(todo):
+            pieces[slot].append((packed, int(ends[k] - lens[k]), int(lens[k])))
+
+    # one D2H copy of everything decoded, in frame and block order
+    decoded = []
+    for ps in pieces:
+        for p in ps:
+            if not isinstance(p, bytes) and p[2]:
+                packed, start, n = p
+                decoded.append(packed[start : start + n])
+    flat = torch.cat(decoded).cpu().numpy() if decoded else np.zeros(0, np.uint8)
+    pos = 0
+    for (fi, reader, _, expected), ps in zip(linked, pieces):
+        parts = []
+        for p in ps:
+            if isinstance(p, bytes):
+                parts.append(p)
+            else:
+                parts.append(flat[pos : pos + p[2]].tobytes())
+                pos += p[2]
+        data = b"".join(parts)
+        if verify_checksums and reader.flags.content_checksum and expected is not None:
+            _check_content(data, expected, dev)
+        results[fi] = data
+    return results

@@ -9,6 +9,10 @@ tables, 8192 for U16) plus an ``(N,)`` int32 tensor of table offsets.
 objects (or anything with ``.dict`` and ``.offset``, such as the port's
 own tables), or plain ``(dict ndarray, offset)`` pairs, so the port itself
 imports nothing of the JAX package.  ``tables_to_numpy`` goes back.
+
+The decoders (``decode128``, ``decode_v4``, ``decode_big``, ``decode_v3``)
+and the linked-frame paths carry no state of their own across the two
+packages: a carry-over window is plain bytes.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""The port's decoders (plain versions of ``csrc/decode128.cu`` and
-``csrc/decode_v4.cu``) against the JAX package's decode128 and v4 kernels
+"""The port's decoders (plain versions of ``csrc/decode128.cu``,
+``csrc/decode_v4.cu``, ``csrc/decode_big.cu`` and ``csrc/decode_v3.cu``) against the JAX package's decode128 and v4 kernels
 (interpret mode), its spec and its native engine, on a seeded generative
 batch.  Bytes and error kinds must be equal."""
 
@@ -16,7 +16,9 @@ from lz4tpu.spec.block import DecodeError as SpecDecodeError
 from lz4tpu.spec.block import compress_block, decompress_block
 from lz4tpu.spec.table import U16Table, U32Table
 from lz4tpu_torch.kernels import decode128 as d128
+from lz4tpu_torch.kernels import decodebig as dbig
 from lz4tpu_torch.kernels import decompress as kdec
+from lz4tpu_torch.kernels import decompress_v3 as dv3
 from lz4tpu_torch.kernels import decompress_v4 as dv4
 from lz4tpu_torch.kernels.pack import pack_rows
 from lz4tpu_torch.kernels.status import OK, STATUS_TO_KIND
@@ -121,8 +123,9 @@ def generative_batch():
     return blocks, prefixes
 
 
-@pytest.mark.parametrize("decoder", [d128.decode128, dv4.decode_v4],
-                         ids=["decode128", "decode_v4"])
+@pytest.mark.parametrize("decoder",
+                         [d128.decode128, dv4.decode_v4, dbig.decode_big, dv3.decode_v3],
+                         ids=["decode128", "decode_v4", "decode_big", "decode_v3"])
 def test_generative_batch_matches_spec(decoder, generative_batch):
     blocks, prefixes = generative_batch
     limit = 8192
@@ -186,11 +189,12 @@ def test_big_blocks_on_v4(corpus_sample):
 @pytest.mark.parametrize("n_blocks,maxsize,route", [
     (24, 1 << 16, "decode128"),
     (23, 1 << 16, "decode_v4"),
-    (30, 1 << 18, "decode_v4"),
+    (30, 1 << 18, "decode_big"),
+    (1, 1 << 22, "decode_big"),
 ])
 def test_decompress_blocks_routing(n_blocks, maxsize, route, monkeypatch):
     calls = []
-    for mod, name in ((d128, "decode128"), (dv4, "decode_v4")):
+    for mod, name in ((d128, "decode128"), (dv4, "decode_v4"), (dbig, "decode_big")):
         orig = getattr(mod, name)
 
         def spy(*a, _orig=orig, _name=name, **k):

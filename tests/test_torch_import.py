@@ -66,6 +66,11 @@ def _entry_points():
         "decompress_block_cuda": lambda: lt.decompress_block_cuda(b"\x10a"),
         "decompress_blocks_128": lambda: lt.decompress_blocks_128([b"\x10a"]),
         "decompress_blocks_v4": lambda: lt.decompress_blocks_v4([b"\x10a"]),
+        "decompress_blocks_big": lambda: lt.decompress_blocks_big([b"\x10a"], 1 << 18),
+        "decompress_blocks_v3": lambda: lt.decompress_blocks_v3([b"\x10a"]),
+        "decompress_frames_parallel": lambda: lt.decompress_frames_parallel([frame]),
+        "compress_frame_parallel_linked": lambda: lt.compress_frame_parallel(
+            b"abc" * 100, parallel_linked=True),
         "CompressionSettings": lambda: lt.CompressionSettings().compress_bytes(b"abc"),
         "decompress_frame": lambda: lt.decompress_frame(frame),
     }
@@ -75,7 +80,8 @@ def _entry_points():
     "compress_frame_parallel", "decompress_frame_parallel", "compress_blocks",
     "compress_block_cuda", "decompress_blocks", "decompress_block_cuda",
     "decompress_blocks_128", "decompress_blocks_v4", "CompressionSettings",
-    "decompress_frame",
+    "decompress_frame", "decompress_blocks_big", "decompress_blocks_v3",
+    "decompress_frames_parallel", "compress_frame_parallel_linked",
 ]))
 def test_default_device_is_cuda_and_raises_without_it(name, monkeypatch):
     fn = _entry_points()[name]
