@@ -10,7 +10,12 @@ Phases, in order; any mismatch or exception exits non-zero:
 1. environment: the card's name and power limit (nvidia-smi), torch and
    CUDA versions, and the kernel build (nvcc, one process per source);
 2. every CUDA kernel against its plain PyTorch version on the same inputs
-   (the plain version runs on a CPU copy): the greedy compressor (U16/U32
+   (the plain version runs on a CPU copy): the lane compressor in its three
+   modes (default: 128 chunks of 32 KiB and the edge payloads; window: rows
+   with a full, a short, an unprimed and no window, a dictionary-seeded head
+   chunk, and the 384 chunks of three 4 MiB blocks with their in-block
+   windows; STRICT: also against the greedy compressor's kernel), the
+   greedy compressor (U16/U32
    tables, acceleration 1 and 8, dictionary-primed tables with a cursor,
    in-kernel priming, caps that trigger Incompressible, the 1 MiB and
    4 MiB rows of big-block frames and the ``[64 KiB window | block]`` rows
@@ -33,9 +38,20 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``decompress_frames_parallel`` call (waves on decode128); (c) each
    member as one linked frame of 4 MiB blocks, decoded by one such call
    (waves on decode_big); (d) one member's 64 KiB blocks through
-   ``decompress_blocks_v3``.
+   ``decompress_blocks_v3``;
+5. the lane compressor's path at full size, over the same corpus, through
+   ``compress_frame_parallel(lane_kernel=True)``: (a) each member as an
+   independent frame of true 4 MiB blocks, each block 128 chunks spliced
+   (decode_big); (b) each member at 64 KiB independent blocks (decode128);
+   (c) the 1 MiB segments as ``parallel_linked`` lane frames, all decoded by
+   one ``decompress_frames_parallel`` call, and no larger than the same
+   segments as independent lane frames; (d) a dictionary frame, independent
+   at 4 MiB blocks and linked at 64 KiB blocks.  Beside each, the same frame
+   geometry through the scalar compressor (phases 3, 4a, 4b).  Then the size
+   contract: over the corpus cut into 32 KiB blocks, the lane compressor's
+   total must be no larger than the greedy compressor's.
 
-In phases 3 and 4 outputs must be byte-equal to the inputs, and every
+In phases 3 to 5 outputs must be byte-equal to the inputs, and every
 kernel of a path must have been launched on it: the launch counts are set
 to 0 before each path and read after it.
 
@@ -85,12 +101,12 @@ def cut_blocks(data: bytes, size: int, k: int):
     return [data[(span * j) // max(k - 1, 1):][:size] for j in range(k)]
 
 
-def same(name, got, want) -> int:
+def same(name, got, want, labels=("out", "out_len", "status", "tables")) -> int:
     """Hold kernel tensors against plain ones exactly; returns the largest
     absolute difference (0)."""
     import torch
 
-    for label, g, w in zip(("out", "out_len", "status", "tables"), got, want):
+    for label, g, w in zip(labels, got, want):
         g = g.cpu()
         if g.shape != w.shape:
             fail(f"{name}: {label} shape {tuple(g.shape)} != {tuple(w.shape)}")
@@ -233,6 +249,138 @@ def check_compress(members):
             timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
                           shape=f"{n} x 64 KiB blocks, U32 tables, cap = block size")
     return dict(err=err, **timing)
+
+
+def lane_edge_payloads():
+    """The edge payloads of tests/test_compress128.py: (payload, hashlog)."""
+    rnd = random.Random(0xED6E)
+    v1 = bytes([99, 116, 232, 245])
+    v2 = bytes([180, 163, 115, 4])  # same bucket and tag as v1 at hashlog 10
+    collide = rnd.randbytes(40) + v1 + rnd.randbytes(40) + v2 + rnd.randbytes(40)
+    plain = [b"", b"hello", b"x" * 13, b"\x00" * 12000, rnd.randbytes(3000),
+             b"Q" * 9000 + rnd.randbytes(2200), b"ab" * 200, bytes(range(256))]
+    return [(p, 12) for p in plain] + [(collide, 10), (collide + collide[:60], 10)]
+
+
+def check_compress128(members):
+    """The lane compressor against its plain versions in its three modes, and
+    STRICT also against the greedy compressor's kernel; returns the report."""
+    import numpy as np
+    import torch
+
+    from lz4tpu_torch.kernels import compress128 as c128
+    from lz4tpu_torch.kernels.compress import compress_blocks
+    from lz4tpu_torch.spec.table import U32Table
+
+    labels = ("out", "out_len", "tail_pos", "tail_lit")
+    names = list(members)
+    w = 65536
+
+    def run(name, tensors, **kw):
+        """Kernel against plain on one batch; returns (kernel tensors, plain
+        tensors, plain ms)."""
+        t0 = time.perf_counter()
+        want = c128.compress128(*tensors, **kw)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        dev = [t.cuda() for t in tensors]
+        got = c128.compress128(*dev, **kw)
+        torch.cuda.synchronize()
+        same(f"compress128[{name}]", got, want, labels)
+        n_in = int((tensors[2] - tensors[3]).sum())
+        print(f"  compress128[{name}]: {len(tensors[1])} rows, {n_in:,d} B -> "
+              f"{int(want[1].sum()):,d} B, equal to plain")
+        return dev, want, plain_ms
+
+    def tensors_of(blocks, prefixes=None):
+        flat, base, n, cur0 = c128.pack_lane_rows(blocks, prefixes)
+        return (torch.from_numpy(flat.copy()), torch.from_numpy(base), torch.from_numpy(n),
+                torch.from_numpy(cur0))
+
+    def moved(tensors, want):
+        """Bytes the launch must move: the source once, the streams once,
+        and the per-row scalars in and out."""
+        return tensors[0].numel() + int(want[1].sum()) + 28 * len(tensors[1])
+
+    # default mode at the shape the kernel is reported at: 128 chunks of
+    # 32 KiB spread over the members
+    chunks = [b for m in names for b in cut_blocks(members[m], c128.MAX_B, 11)][:128]
+    main = tensors_of(chunks)
+    dev, want, plain_ms = run("default, 128 x 32 KiB", main)
+    ms = cuda_ms(lambda: c128.compress128(*dev))
+    report = dict(err=0, ms=ms, plain_ms=plain_ms, bound_ms=moved(main, want) / HBM_BYTES_PER_S * 1e3,
+                  shape=f"{len(chunks)} x 32 KiB chunks, default mode")
+
+    # STRICT on the same chunks: plain version and the greedy compressor's kernel
+    dev, want, strict_plain_ms = run("strict, 128 x 32 KiB", main, strict=True)
+    strict_ms = cuda_ms(lambda: c128.compress128(*dev, strict=True))
+    scalar, _ = compress_blocks(chunks, tables=[U32Table() for _ in chunks], device="cuda")
+    lens = want[1].numpy()
+    for i, c in enumerate(scalar):
+        if want[0][i, : lens[i]].numpy().tobytes() != c:
+            fail(f"compress128[strict]: chunk {i} differs from the greedy compressor's kernel")
+    print(f"  compress128[strict]: {len(chunks)} chunks equal to compress.cu; {strict_ms:.3f} ms "
+          f"on the card against {ms:.3f} ms in default mode, plain {strict_plain_ms:.1f} ms")
+
+    # the edge payloads, default and STRICT (an empty block is b"\x00" in the
+    # lane kernel and nothing in the greedy one)
+    for hashlog in (12, 10):
+        edge = [p for p, h in lane_edge_payloads() if h == hashlog]
+        run(f"default, edge payloads, hashlog {hashlog}", tensors_of(edge), hashlog=hashlog)
+    edge = [p for p, _ in lane_edge_payloads()]
+    _, want, _ = run("strict, edge payloads", tensors_of(edge), strict=True)
+    scalar, _ = compress_blocks(edge, tables=[U32Table() for _ in edge], device="cuda")
+    lens = want[1].numpy()
+    for i, (p, c) in enumerate(zip(edge, scalar)):
+        if want[0][i, : lens[i]].numpy().tobytes() != (c if p else b"\x00"):
+            fail(f"compress128[strict]: edge payload {i} differs from the greedy compressor's kernel")
+
+    # window mode: full, short, unprimed (under 16 bytes) and absent windows
+    # in one batch, short blocks among them, and a head chunk behind the
+    # tail of a dictionary that is not the input before it
+    blocks, prefixes = [], []
+    kinds = (w, 3000, 10, 0, w, 40000)
+    for k, m in enumerate(names):
+        data = members[m]
+        pos = min(w + 4096 * k, max(len(data) - c128.MAX_B, 0))
+        size = c128.MAX_B if k % 4 else 5000 + 1000 * k
+        blocks.append(data[pos : pos + size])
+        prefixes.append(data[max(pos - kinds[k % len(kinds)], 0) : pos])
+    dic = members[names[0]][-w:]
+    blocks += [members[m][: c128.MAX_B] for m in names[5:9]]
+    prefixes += [dic, dic[-20000:], dic, dic[:15]]
+    window_rows = tensors_of(blocks, prefixes)
+    run("window, mixed windows and dictionary heads", window_rows)
+    spread = sorted({int(c) for c in window_rows[3]})
+    full = spread[-1] == w or min(map(len, members.values())) < 3 * w  # a small --scale
+    if not (spread[0] == 0 and 0 < spread[1] < 16 and full and len(spread) >= 5):
+        fail(f"compress128[window]: the batch lacks a window kind: {spread}")
+
+    # the frame path's own rows: three 4 MiB blocks (shorter at small scale)
+    # cut into chunks, each behind the 64 KiB before it inside its block
+    big = [cut_blocks(members[m], 4 << 20, 1)[0] for m in names[:3]]
+    flat = np.frombuffer(b"".join(big), np.uint8)
+    base, n, cur0 = [], [], []
+    floor = 0
+    for b in big:
+        for start in range(floor, floor + len(b), c128.MAX_B):
+            lo = max(start - w, floor)
+            base.append(lo)
+            cur0.append(start - lo)
+            n.append(start - lo + min(c128.MAX_B, floor + len(b) - start))
+        floor += len(b)
+    frame_rows = (torch.from_numpy(flat.copy()), torch.tensor(base, dtype=torch.int64),
+                  torch.tensor(n, dtype=torch.int32), torch.tensor(cur0, dtype=torch.int32))
+    dev, want, big_plain_ms = run("window, chunks of 3 x 4 MiB blocks", frame_rows)
+    big_ms = cuda_ms(lambda: c128.compress128(*dev))
+    report["at_frame_rows"] = dict(
+        ms=big_ms, plain_ms=big_plain_ms,
+        bound_ms=moved(frame_rows, want) / HBM_BYTES_PER_S * 1e3,
+        shape=f"{len(base)} chunks of " + " + ".join(f"{len(b) / (1 << 20):.2f}" for b in big)
+              + " MiB blocks, in-block windows")
+    print(f"  compress128 at the frame path's rows ({report['at_frame_rows']['shape']}): "
+          f"{big_ms:.3f} ms on the card, plain {big_plain_ms:.1f} ms, bound "
+          f"{report['at_frame_rows']['bound_ms']:.4f} ms")
+    return report
 
 
 def hostile_blocks(valid, rng):
@@ -598,12 +746,13 @@ def frame_stats(frame: bytes):
 
 def kernel_modules():
     from lz4tpu_torch.kernels import compress as kc
+    from lz4tpu_torch.kernels import compress128 as c128
     from lz4tpu_torch.kernels import decode128 as d128
     from lz4tpu_torch.kernels import decodebig as dbig
     from lz4tpu_torch.kernels import decompress_v3 as dv3
     from lz4tpu_torch.kernels import decompress_v4 as dv4
 
-    return (kc, d128, dv4, dbig, dv3)
+    return (kc, c128, d128, dv4, dbig, dv3)
 
 
 class PathMeter:
@@ -625,6 +774,14 @@ class PathMeter:
         comp_bytes, _, nc, ns = frame_stats(frame)
         self.traffic["compress"] += (n_in + (nc + ns) * row_extra + comp_bytes
                                      + 2 * 4 * 4096 * (nc + ns))
+
+    def lane_compressed(self, frame, n_in, source_extra=0):
+        """Account one frame's lane-compress launch: the flat source once
+        (``source_extra`` bytes of dictionary tails in it), the streams that
+        made it into the frame, and 28 bytes of scalars a chunk."""
+        comp_bytes, stored, _, _ = frame_stats(frame)
+        self.traffic["compress128"] += (n_in + source_extra + comp_bytes + stored
+                                        + 28 * -(-n_in // 32768))
 
     def decoded(self, kernel, frame, n_out, prefix_bytes=0):
         """Account one frame's decode: compressed blocks in, their output
@@ -711,30 +868,33 @@ def phase_main(members, scale: float):
     print(f"  4 MiB-block frame: {names[-1]}, ratio {len(frame) / len(data):.4f}, "
           f"round trip equal on decode_big and on decompress_v4")
     report = meter.finish()
-    print(f"main path total: {total_in:,d} B in, ratio {total_out / total_in:.4f}, "
-          f"compress {total_in / t_comp / 1e6:.1f} MB/s, "
-          f"decompress {total_in / t_dec / 1e6:.1f} MB/s (host wall, incl. transfers)")
-    return report
+    return report, rates("main path total", total_in, total_out, t_comp, t_dec)
+
+
+def wall(fn):
+    """(result, host wall seconds) of ``fn``, the card idle before and after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def rates(label, n_in, n_out, t_comp, t_dec) -> str:
+    """Print a path's totals; returns them for a later path to print beside
+    its own."""
+    summary = (f"ratio {n_out / n_in:.4f}, compress {n_in / t_comp / 1e6:.1f} MB/s, "
+               f"decompress {n_in / t_dec / 1e6:.1f} MB/s")
+    print(f"  {label}: {n_in:,d} B in, {summary} (host wall, incl. transfers)")
+    return summary
 
 
 def phase_big_and_linked(members):
     """Big blocks and linked frames over the whole corpus; returns one
     report per part."""
-    import torch
-
     import lz4tpu_torch as lt
-
-    def wall(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = fn()
-        torch.cuda.synchronize()
-        return res, time.perf_counter() - t0
-
-    def rates(label, n_in, n_out, t_comp, t_dec):
-        print(f"  {label}: {n_in:,d} B in, ratio {n_out / n_in:.4f}, "
-              f"compress {n_in / t_comp / 1e6:.1f} MB/s, decompress {n_in / t_dec / 1e6:.1f} MB/s "
-              f"(host wall, incl. transfers)")
 
     total = sum(map(len, members.values()))
     reports = {}
@@ -753,7 +913,7 @@ def phase_big_and_linked(members):
         meter.compressed(frame, len(data))
         meter.decoded("decode_big", frame, len(data))
         n_out += len(frame)
-    rates("(a) 4 MiB independent blocks", total, n_out, t_comp, t_dec)
+    summaries = {"4a": rates("(a) 4 MiB independent blocks", total, n_out, t_comp, t_dec)}
     reports["a"] = meter.finish()
 
     # (b) 1 MiB segments as linked frames of 64 KiB blocks, decoded in waves
@@ -771,8 +931,9 @@ def phase_big_and_linked(members):
         meter.compressed(frame, len(seg) + 65536 * (len(blocks) - 1))  # rows carry windows
         meter.decoded("decode128", frame, len(seg), prefix_bytes=windows)
     linked_total = sum(map(len, frames))
-    rates(f"(b) {len(segments)} linked frames of 64 KiB blocks, "
-          f"{max(len(frame_blocks(f)) for f in frames)} waves", total, linked_total, t_comp, t_dec)
+    summaries["4b"] = rates(f"(b) {len(segments)} linked frames of 64 KiB blocks, "
+                            f"{max(len(frame_blocks(f)) for f in frames)} waves",
+                            total, linked_total, t_comp, t_dec)
     reports["b"] = meter.finish()
     k = len(segments) // 2
     if lt.decompress_frame(frames[k]) != segments[k]:
@@ -817,7 +978,138 @@ def phase_big_and_linked(members):
     print(f"  (d) {len(payloads)} blocks of {name} through decompress_blocks_v3: "
           f"{sum(map(len, raws)) / dt / 1e6:.1f} MB/s (host wall, incl. transfers)")
     reports["d"] = meter.finish()
+    return reports, summaries
+
+
+def phase_lane(members, scalar):
+    """The lane compressor's path over the whole corpus; ``scalar`` holds the
+    scalar compressor's totals on the same frame geometries (phases 3, 4a,
+    4b), printed beside.  Returns one report per part."""
+    import lz4tpu_torch as lt
+    from lz4tpu_torch.kernels.compress import compress_blocks
+    from lz4tpu_torch.kernels.compress128 import MAX_B
+    from lz4tpu_torch.spec.table import U32Table
+
+    total = sum(map(len, members.values()))
+    names = list(members)
+    reports = {}
+
+    def round_trips(path, needed, block_size, decoder, scalar_path):
+        """Every member as one independent lane frame of ``block_size``."""
+        meter = PathMeter(path, needed)
+        n_out = 0
+        t_comp = t_dec = 0.0
+        for name, data in members.items():
+            frame, dt = wall(lambda: lt.compress_frame_parallel(data, block_size, lane_kernel=True))
+            t_comp += dt
+            back, dt = wall(lambda: lt.decompress_frame_parallel(frame))
+            t_dec += dt
+            if back != data:
+                fail(f"{path}: {name} does not round-trip")
+            sizes = [n for _, _, n in frame_blocks(frame)]
+            if len(sizes) != -(-len(data) // block_size):
+                fail(f"{path}: {name} has {len(sizes)} blocks, not one per {block_size} bytes")
+            meter.lane_compressed(frame, len(data))
+            meter.decoded(decoder, frame, len(data))
+            n_out += len(frame)
+        rates(path, total, n_out, t_comp, t_dec)
+        print(f"    scalar compressor, same geometry (phase {scalar_path}): {scalar[scalar_path]}")
+        return meter.finish()
+
+    # (a) true 4 MiB independent blocks, 128 spliced chunks each
+    reports["5a"] = round_trips("(5a) lane, 4 MiB independent blocks",
+                                ("compress128", "decode_big"), 4 << 20, "decode_big", "4a")
+    # (b) 64 KiB independent blocks, 2 spliced chunks each
+    reports["5b"] = round_trips("(5b) lane, 64 KiB independent blocks",
+                                ("compress128", "decode128"), 65536, "decode128", "3")
+
+    # (c) the 1 MiB segments as linked lane frames, decoded in waves
+    segments = [data[i : i + SEGMENT] for data in members.values()
+                for i in range(0, len(data), SEGMENT)]
+    meter = PathMeter("(5c) lane, linked frames", ("compress128", "decode128"))
+    frames, t_comp = wall(lambda: [lt.compress_frame_parallel(seg, 65536, parallel_linked=True,
+                                                              lane_kernel=True)
+                                   for seg in segments])
+    back, t_dec = wall(lambda: lt.decompress_frames_parallel(frames))
+    if back != segments:
+        fail("(5c) lane, linked frames: the segments do not round-trip")
+    for seg, frame in zip(segments, frames):
+        blocks = frame_blocks(frame)
+        windows = sum(65536 for k, (c, _, _) in enumerate(blocks) if c and k)
+        meter.lane_compressed(frame, len(seg))
+        meter.decoded("decode128", frame, len(seg), prefix_bytes=windows)
+    linked_total = sum(map(len, frames))
+    rates(f"(5c) lane, {len(segments)} linked frames of 64 KiB blocks", total, linked_total,
+          t_comp, t_dec)
+    print(f"    scalar compressor, same geometry (phase 4b): {scalar['4b']}")
+    reports["5c"] = meter.finish()
+    independent_total = sum(len(lt.compress_frame_parallel(seg, 65536, lane_kernel=True))
+                            for seg in segments)
+    print(f"  (5c) linked {linked_total:,d} B against {independent_total:,d} B for the same "
+          f"segments as independent lane frames")
+    if linked_total > independent_total:
+        fail("(5c) linked lane frames are larger than independent lane frames of the same segments")
+
+    # (d) a dictionary frame: independent at 4 MiB blocks, linked at 64 KiB
+    meter = PathMeter("(5d) lane, dictionary frames", ("compress128", "decode_big", "decode128"))
+    dic = members[names[0]][-65536:]
+    data = members[names[7]]
+    sizes = {}
+    for label, kw, decoder in (("independent, 4 MiB blocks", dict(block_size=4 << 20), "decode_big"),
+                               ("linked, 64 KiB blocks",
+                                dict(block_size=65536, parallel_linked=True), "decode128")):
+        frame = lt.compress_frame_parallel(data, dictionary=dic, dictionary_id=1,
+                                           block_checksums=True, lane_kernel=True, **kw)
+        if lt.decompress_frames_parallel([frame], dictionaries=[dic]) != [data]:
+            fail(f"(5d) dictionary frame ({label}) does not round-trip")
+        blocks = frame_blocks(frame)
+        meter.lane_compressed(frame, len(data),
+                              source_extra=len(dic) * (1 if "parallel_linked" in kw else len(blocks)))
+        meter.decoded(decoder, frame, len(data), prefix_bytes=len(dic) * len(blocks))
+        sizes[label] = len(frame)
+        plain = len(lt.compress_frame_parallel(data, lane_kernel=True, **kw))
+        print(f"  (5d) {names[7]} with a 64 KiB dictionary, {label}: ratio "
+              f"{len(frame) / len(data):.4f} ({plain / len(data):.4f} without the dictionary), "
+              f"round trip equal")
+    reports["5d"] = meter.finish()
+
+    # the size contract: the corpus in 32 KiB blocks, default mode against
+    # the greedy compressor on the same blocks
+    lane_total = greedy_total = 0
+    for name, data in members.items():
+        blocks = [data[i : i + MAX_B] for i in range(0, len(data), MAX_B)]
+        lane = sum(map(len, lt.compress_blocks_128(blocks)))
+        greedy = sum(map(len, compress_blocks(blocks, tables=[U32Table() for _ in blocks])[0]))
+        lane_total += lane
+        greedy_total += greedy
+        print(f"    {name:8s} {len(blocks):5d} blocks: lane {lane:>11,d} B, greedy {greedy:>11,d} B "
+              f"({lane / greedy:.4f})")
+    print(f"  size contract, {total:,d} B in 32 KiB blocks: lane compressor {lane_total:,d} B, "
+          f"greedy compressor {greedy_total:,d} B ({lane_total / greedy_total:.4f})")
+    if lane_total > greedy_total:
+        fail(f"the lane compressor's total {lane_total} is larger than the greedy "
+             f"compressor's {greedy_total} on the same 32 KiB blocks")
     return reports
+
+
+def profile_lane(members):
+    """The largest member through phase 5: (a) 4 MiB independent lane
+    blocks, (c) its 1 MiB segments as linked lane frames."""
+    import lz4tpu_torch as lt
+
+    name = max(members, key=lambda m: len(members[m]))
+    data = members[name]
+    title = f"{name} ({len(data):,d} B)"
+    frame = lt.compress_frame_parallel(data, 4 << 20, lane_kernel=True)
+    profile_calls(title + ", (5a) lane, 4 MiB independent blocks", (
+        ("compress", lambda: lt.compress_frame_parallel(data, 4 << 20, lane_kernel=True)),
+        ("decompress", lambda: lt.decompress_frame_parallel(frame)),
+    ))
+    segments = [data[i : i + SEGMENT] for i in range(0, len(data), SEGMENT)]
+    profile_calls(title + f", (5c) lane, {len(segments)} linked frames of 64 KiB blocks", (
+        ("compress", lambda: [lt.compress_frame_parallel(seg, 65536, parallel_linked=True,
+                                                         lane_kernel=True) for seg in segments]),
+    ))
 
 
 def main() -> int:
@@ -860,21 +1152,28 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     phase("phase 2: kernels against their plain versions")
+    lane = check_compress128(members)
     comp = check_compress(members)
     dec = check_decoders(members)
     check_host_paths(members)
-    checks = {"compress": comp, **dec}
+    checks = {"compress": comp, "compress128": lane, **dec}
     for name, r in checks.items():
         print(f"  {name}: {r['ms']:.3f} ms on the card, plain {r['plain_ms']:.1f} ms on the "
               f"host CPU, bound {r['bound_ms']:.4f} ms ({r['shape']})")
     phase("phase 3: 64 KiB independent blocks")
-    paths = {"3": phase_main(members, scale)}
+    report, scalar_3 = phase_main(members, scale)
+    paths = {"3": report}
     if args.profile:
         profile_round_trip(members)
     phase("phase 4: big blocks and linked frames")
-    paths.update(phase_big_and_linked(members))
+    reports, scalar = phase_big_and_linked(members)
+    paths.update(reports)
     if args.profile:
         profile_big_and_linked(members)
+    phase("phase 5: the lane compressor, big blocks spliced from 32 KiB chunks")
+    paths.update(phase_lane(members, {"3": scalar_3, **scalar}))
+    if args.profile:
+        profile_lane(members)
     phase("")
 
     rows = []
@@ -891,6 +1190,8 @@ def main() -> int:
             "main_bound_ms": sum(r["main_bound_ms"] for r in on.values()),
             "paths": on,
         })
+        if "at_frame_rows" in c:
+            rows[-1]["at_frame_rows"] = c["at_frame_rows"]
         if not rows[-1]["launches"]:
             fail(f"kernel {name} was launched on no path")
     print(json.dumps({"kernels": rows}))

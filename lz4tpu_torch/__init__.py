@@ -10,16 +10,20 @@ Every entry point takes ``device=None``, meaning ``"cuda"``; without a card
 that raises.  ``device="cpu"`` runs each kernel's plain version instead.
 
 * frames, whole-frame on the device: ``compress_frame_parallel``
-  (independent or ``parallel_linked``), ``decompress_frame_parallel``, and
-  ``decompress_frames_parallel`` (many frames, linked ones in waves);
+  (independent or ``parallel_linked``; ``lane_kernel=True`` for the lane
+  compressor, which cuts big blocks into 32 KiB chunks and splices them),
+  ``decompress_frame_parallel``, and ``decompress_frames_parallel`` (many
+  frames, linked ones in waves);
 * frames, streaming: ``CompressionSettings``, ``LZ4FrameReader``,
   ``decompress_frame``;
 * raw blocks: ``compress_blocks``, ``compress_block_cuda``,
+  ``compress_blocks_128`` (lane compressor: default, window and strict
+  modes), ``splice_streams``,
   ``decompress_blocks``, ``decompress_block_cuda``,
   ``decompress_blocks_128``, ``decompress_blocks_v4``,
   ``decompress_blocks_big``, ``decompress_blocks_v3``;
 * encoder-table state shared with the JAX package: ``tables_from_jax``,
-  ``tables_to_numpy``.
+  ``tables_to_numpy``, ``lane_tables_from_jax``, ``lane_tables_to_jax``.
 """
 
 from .frame.compress import CompressionSettings
@@ -32,18 +36,20 @@ from .frame.errors import (
 )
 from .frame.header import MAGIC, WINDOW_SIZE
 from .kernels.compress import compress_block_cuda, compress_blocks
+from .kernels.compress128 import compress_blocks_128
 from .kernels.decode128 import decompress_blocks_128
 from .kernels.decodebig import decompress_blocks_big
 from .kernels.decompress import decompress_block_cuda, decompress_blocks
 from .kernels.decompress_v3 import decompress_blocks_v3
 from .kernels.decompress_v4 import decompress_blocks_v4
+from .kernels.splice import splice_streams
 from .parallel.pipeline import (
     compress_frame_parallel,
     decompress_frame_parallel,
     decompress_frames_parallel,
 )
 from .spec.block import BlockTooBig, DecodeError, Incompressible
-from .state import tables_from_jax, tables_to_numpy
+from .state import lane_tables_from_jax, lane_tables_to_jax, tables_from_jax, tables_to_numpy
 
 __all__ = [
     "CompressionSettings",
@@ -54,6 +60,8 @@ __all__ = [
     "decompress_frames_parallel",
     "compress_blocks",
     "compress_block_cuda",
+    "compress_blocks_128",
+    "splice_streams",
     "decompress_blocks",
     "decompress_block_cuda",
     "decompress_blocks_128",
@@ -62,6 +70,8 @@ __all__ = [
     "decompress_blocks_v3",
     "tables_from_jax",
     "tables_to_numpy",
+    "lane_tables_from_jax",
+    "lane_tables_to_jax",
     "DecodeError",
     "Incompressible",
     "BlockTooBig",

@@ -122,6 +122,9 @@ _SIGNATURES = {
                              _P, _P, _I, _P]),
     "lz4t_decode_v3": (_I, [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _I64,
                             _P, _P, _I, _P]),
+    # src, base, n, cur0, out, out_stride, out_len, tail_pos, tail_lit, nrows,
+    # hashlog, strict, stream
+    "lz4t_compress128": (_I, [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I, _I, _I, _P]),
     "lz4t_xxh32": (ctypes.c_uint32, [_P, ctypes.c_uint64, ctypes.c_uint32]),
     "lz4t_xxh32_state_size": (_I, []),
     "lz4t_xxh32_init": (None, [_P, ctypes.c_uint32]),

@@ -28,7 +28,14 @@ D2H copy), and the host assembles the frame in order.
   one launch, each block with its own frame's 64 KiB carry-over window,
   which stays on the device from wave to wave.
 
-``lane_kernel=True`` compression is a later slice of the port.
+``compress_frame_parallel(lane_kernel=True)`` compresses with the lane
+compressor (``kernels/compress128.py``) instead: the input is cut into
+chunks of at most 32 KiB, all chunks of the frame are compressed in one
+launch, each behind a window of the bytes before it, and the chunk streams
+of one output block are spliced into ONE block of the declared size
+(``kernels/splice.py``).  That is how a 4 MiB block becomes 128 parallel
+parses.  Such a frame is valid LZ4 of about the same size, not the
+streaming writer's bytes.
 """
 
 from __future__ import annotations
@@ -39,10 +46,12 @@ import torch
 from ..frame.errors import BlockChecksumFail, BlockSizeOverflow, FrameChecksumFail, InvalidBlockSize
 from ..frame.header import INCOMPRESSIBLE, MAGIC, BlockDescriptor, Flags
 from ..kernels.compress import compress_batch
+from ..kernels.compress128 import MAX_B, compress128
 from ..kernels.decode128 import MAX_BLOCK, decode128
 from ..kernels.decodebig import decode_big
 from ..kernels.decompress_v4 import decode_v4
 from ..kernels.pack import check_decoded, compact_rows, fetch_rows, pack_prefixes, pack_rows
+from ..kernels.splice import splice_streams
 from ..kernels.status import OK, STATUS_INCOMPRESSIBLE, STATUS_TO_KIND
 from ..runtime import host_u8, resolve_device, round_up
 from ..spec.block import WINDOW_SIZE, DecodeError
@@ -86,50 +95,21 @@ def _linked_rows(flat, n_blocks: int, block_size: int, dictionary, dev):
     return rows, cursors
 
 
-def compress_frame_parallel(
-    data,
-    block_size: int = 1 << 16,
-    device=None,
-    content_checksum: bool = True,
-    block_checksums: bool = False,
-    with_content_size: bool = True,
-    acceleration: int = 1,
-    parallel_linked: bool = False,
-    dictionary=None,
-    dictionary_id: int | None = None,
-    lane_kernel: bool = False,
-) -> bytes:
-    """Compress one LZ4 frame with all blocks in one kernel launch.
-
-    Independent mode is byte-identical to the streaming writer
-    (``frame.compress.CompressionSettings``) with the same settings,
-    including a preset dictionary.
-
-    ``parallel_linked`` emits a valid linked-block frame: every block past
-    the first is parsed behind the 64 KiB of input before it, with the
-    table primed from that window in the kernel.  Only full windows are
-    primed, so with a dictionary only block 0's window is seeded, from the
-    dictionary's last 64 KiB, and a shorter dictionary leaves block 0 an
-    independent block.  The blocks stay ``block_size`` long (``lz4tpu``
-    shrinks them to fit the v5e's scalar memory; this card has no such
-    limit).
-    """
-    if lane_kernel:
-        raise NotImplementedError(
-            "lane_kernel=True needs the compress128 counterpart, a later slice "
-            "of the port (ROADMAP.md queue 1: compress128 with STRICT/window modes)"
-        )
-    bd = BlockDescriptor.for_block_maxsize(block_size)
-    if bd is None:
-        raise InvalidBlockSize(str(block_size))
-    dev = resolve_device(device)
-    src = host_u8(data)
-    n = src.numel()
-    dictionary = bytes(dictionary) if dictionary is not None else None
-    d = len(dictionary or b"")
+def _block_lens(n: int, block_size: int) -> np.ndarray:
+    """Lengths of the frame's blocks; an empty input is one empty block."""
     n_blocks = max(-(-n // block_size), 1)
     lens = np.full(n_blocks, block_size, np.int32)
     lens[-1] = n - (n_blocks - 1) * block_size
+    return lens
+
+
+def _scalar_blocks(src, block_size, dictionary, parallel_linked, acceleration, dev):
+    """The frame's blocks through the scalar greedy compressor, one launch:
+    (payloads, lens), a payload ``None`` where the block is stored raw."""
+    n = src.numel()
+    d = len(dictionary or b"")
+    lens = _block_lens(n, block_size)
+    n_blocks = len(lens)
 
     # one H2D copy of the content, padded to whole blocks on the device
     flat = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
@@ -178,7 +158,136 @@ def compress_frame_parallel(
     out_len = out_len.cpu().numpy()
     status = status.cpu().numpy()
     stored = status == STATUS_INCOMPRESSIBLE
-    payloads = fetch_rows(out, out_len, ~stored & (lens > 0))
+    return fetch_rows(out, out_len, ~stored & (lens > 0)), lens
+
+
+def _lane_blocks(src, block_size, dictionary, parallel_linked, chunk_windows, dev):
+    """The frame's blocks through the lane compressor, one launch over all
+    chunks: (payloads, lens), a payload ``None`` where the block is stored
+    raw.
+
+    A chunk's row is cut from one flat source on the device by its base
+    offset: the 64 KiB before the chunk, stopped at ``floor``, the first
+    byte its block may refer to.  Linked frames: the source is ``[dictionary
+    tail | input]`` and the floor its start.  Independent frames: a window
+    stays inside the chunk's own output block, whose source segment is
+    ``[dictionary tail | block]``, so what lies before the segment is neither
+    primed nor matched."""
+    n = src.numel()
+    chunk = min(block_size, MAX_B)
+    cpb = block_size // chunk  # chunks per output block
+    lens = _block_lens(n, block_size)
+    n_blocks = len(lens)
+    if n == 0:
+        return [None], lens
+    n_chunks = -(-n // chunk)
+    idx = np.arange(n_chunks, dtype=np.int64)
+    chunk_len = np.minimum(chunk, n - idx * chunk)
+    tail = (dictionary or b"")[-WINDOW_SIZE:]
+    d = len(tail)
+
+    data = src.to(dev)  # the one H2D copy of the content
+    if d:
+        tail_dev = torch.frombuffer(bytearray(tail), dtype=torch.uint8).to(dev)
+    if parallel_linked:
+        flat = torch.cat([tail_dev, data]) if d else data
+        start = d + idx * chunk
+        floor = np.zeros(n_chunks, np.int64)
+    elif d:
+        segment = d + block_size
+        buf = torch.zeros((n_blocks, segment), dtype=torch.uint8, device=dev)
+        buf[:, :d] = tail_dev
+        padded = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
+        padded[:n] = data
+        buf[:, d:] = padded.view(n_blocks, block_size)
+        flat = buf.view(-1)
+        floor = (idx // cpb) * segment
+        start = floor + d + (idx % cpb) * chunk
+    else:
+        flat = data
+        start = idx * chunk
+        floor = (idx // cpb) * block_size
+    # a dictionary is only addressable through a gapless window, so with one
+    # the in-block windows stay whatever ``chunk_windows`` says
+    if parallel_linked or d or (cpb > 1 and chunk_windows):
+        base = np.maximum(start - WINDOW_SIZE, floor)
+    else:
+        base = start
+    cur0 = (start - base).astype(np.int32)
+    out, out_len, tail_pos, tail_lit = compress128(
+        flat,
+        torch.from_numpy(base).to(dev),
+        torch.from_numpy(cur0 + chunk_len.astype(np.int32)).to(dev),
+        torch.from_numpy(cur0).to(dev),
+    )
+    out_len, tail_pos, tail_lit = torch.stack([out_len, tail_pos, tail_lit]).cpu().numpy()
+    streams = fetch_rows(out, out_len, np.ones(n_chunks, bool))
+    tails = list(zip(tail_pos.tolist(), tail_lit.tolist()))
+    payloads = []
+    for ob in range(n_blocks):
+        lo, hi = ob * cpb, min((ob + 1) * cpb, n_chunks)
+        payload = streams[lo] if hi - lo == 1 else splice_streams(streams[lo:hi], tails[lo:hi])
+        # the lane kernel has no output cap: a block that did not shrink is
+        # stored raw, as the capped scalar parse would have it
+        payloads.append(payload if len(payload) <= lens[ob] else None)
+    return payloads, lens
+
+
+def compress_frame_parallel(
+    data,
+    block_size: int = 1 << 16,
+    device=None,
+    content_checksum: bool = True,
+    block_checksums: bool = False,
+    with_content_size: bool = True,
+    acceleration: int = 1,
+    parallel_linked: bool = False,
+    dictionary=None,
+    dictionary_id: int | None = None,
+    lane_kernel: bool = False,
+    chunk_windows: bool = True,
+) -> bytes:
+    """Compress one LZ4 frame with all blocks in one kernel launch.
+
+    Independent mode is byte-identical to the streaming writer
+    (``frame.compress.CompressionSettings``) with the same settings,
+    including a preset dictionary.
+
+    ``parallel_linked`` emits a valid linked-block frame: every block past
+    the first is parsed behind the 64 KiB of input before it, with the
+    table primed from that window in the kernel.  Only full windows are
+    primed, so with a dictionary only block 0's window is seeded, from the
+    dictionary's last 64 KiB, and a shorter dictionary leaves block 0 an
+    independent block.  The blocks stay ``block_size`` long (``lz4tpu``
+    shrinks them to fit the v5e's scalar memory; this card has no such
+    limit).
+
+    ``lane_kernel=True`` takes the lane compressor in all four modes
+    (independent, ``parallel_linked``, dictionary, dictionary and linked):
+    chunks of ``min(block_size, 32 KiB)``, each behind a window of up to
+    64 KiB (the input before it in a linked frame, from the dictionary's
+    tail on; in an independent frame the dictionary's tail and the bytes of
+    its own block before it), the chunk streams of a block spliced into one
+    block of ``block_size``, stored raw when that is longer than the block.
+    ``chunk_windows=False`` compresses each chunk of an independent frame
+    without a dictionary standalone (no priming, about 1-2 % more bytes).
+    The frame is valid LZ4 for any reader but not the streaming writer's
+    bytes, and ``acceleration`` is ignored: leave ``lane_kernel`` off where
+    byte parity with the reference encoder matters.
+    """
+    bd = BlockDescriptor.for_block_maxsize(block_size)
+    if bd is None:
+        raise InvalidBlockSize(str(block_size))
+    dev = resolve_device(device)
+    src = host_u8(data)
+    n = src.numel()
+    dictionary = bytes(dictionary) if dictionary is not None else None
+    if lane_kernel:
+        payloads, lens = _lane_blocks(src, block_size, dictionary, parallel_linked,
+                                      chunk_windows, dev)
+    else:
+        payloads, lens = _scalar_blocks(src, block_size, dictionary, parallel_linked,
+                                        acceleration, dev)
 
     # host-side ordered assembly (frame order)
     flags = Flags(
@@ -190,14 +299,13 @@ def compress_frame_parallel(
     )
     mv = memoryview(src.numpy())
     parts = [_frame_header(flags, bd, n if with_content_size else None, dictionary_id)]
-    for i in range(n_blocks):
+    for i, payload in enumerate(payloads):
         if not lens[i]:
             continue  # no zero-length blocks: 0 is the EndMark
-        if stored[i]:
+        if payload is None:
             payload = mv[i * block_size : i * block_size + int(lens[i])]
             parts.append((int(lens[i]) | INCOMPRESSIBLE).to_bytes(4, "little"))
         else:
-            payload = payloads[i]
             parts.append(len(payload).to_bytes(4, "little"))
         parts.append(payload)
         if block_checksums:

@@ -71,6 +71,9 @@ def _entry_points():
         "decompress_frames_parallel": lambda: lt.decompress_frames_parallel([frame]),
         "compress_frame_parallel_linked": lambda: lt.compress_frame_parallel(
             b"abc" * 100, parallel_linked=True),
+        "compress_frame_parallel_lane": lambda: lt.compress_frame_parallel(
+            b"abc" * 100, lane_kernel=True),
+        "compress_blocks_128": lambda: lt.compress_blocks_128([b"abc" * 100]),
         "CompressionSettings": lambda: lt.CompressionSettings().compress_bytes(b"abc"),
         "decompress_frame": lambda: lt.decompress_frame(frame),
     }
@@ -82,6 +85,7 @@ def _entry_points():
     "decompress_blocks_128", "decompress_blocks_v4", "CompressionSettings",
     "decompress_frame", "decompress_blocks_big", "decompress_blocks_v3",
     "decompress_frames_parallel", "compress_frame_parallel_linked",
+    "compress_frame_parallel_lane", "compress_blocks_128",
 ]))
 def test_default_device_is_cuda_and_raises_without_it(name, monkeypatch):
     fn = _entry_points()[name]

@@ -229,6 +229,13 @@ def test_parallel_linked_small_inputs(data):
 
 
 def test_lane_kernel_still_raises():
-    with pytest.raises(NotImplementedError, match="later slice"):
-        lt.compress_frame_parallel(b"abc" * 100, device="cpu", parallel_linked=True,
+    """Its name is from the slice that raised here: ``lane_kernel=True`` now
+    round-trips a linked frame, and only a block size LZ4 lacks raises."""
+    data = b"abc" * 100 + make_corpus_sample(1900, 70_000)
+    frame = lt.compress_frame_parallel(data, device="cpu", parallel_linked=True,
+                                       lane_kernel=True)
+    assert decompress_frame(frame, engine="native") == data
+    assert lt.decompress_frames_parallel([frame], device="cpu") == [data]
+    with pytest.raises(lt.CompressionError):
+        lt.compress_frame_parallel(data, block_size=1000, device="cpu", parallel_linked=True,
                                    lane_kernel=True)
