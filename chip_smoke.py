@@ -19,11 +19,16 @@ Phases, in order; any mismatch or exception exits non-zero:
    tables, acceleration 1 and 8, dictionary-primed tables with a cursor,
    in-kernel priming, caps that trigger Incompressible, the 1 MiB and
    4 MiB rows of big-block frames and the ``[64 KiB window | block]`` rows
-   of linked ones) and the four decoders, decode128, decompress_v4,
-   decode_big and decompress_v3 (64 KiB prefixes, hostile blocks, seeded
-   mutations of valid blocks; for the last three also blocks of 256 KiB,
-   1 MiB and 4 MiB without a prefix, with a 64 KiB prefix and with a
-   prefix too short for their offsets).  Bytes, lengths, statuses
+   of linked ones, both timed alone; the edges of its warp-wide parse:
+   stale tables behind a table offset on rows that collide inside a batch,
+   megabyte literal runs before far copies, tiny rows, rows off the
+   16-byte grid, one row under every cap) and the four decoders,
+   decode128, decompress_v4, decode_big and decompress_v3 (64 KiB
+   prefixes, hostile blocks, seeded mutations of valid blocks, hand-made
+   streams at the edges of a 32-sequence batch; for the last three also
+   blocks of 256 KiB, 1 MiB and 4 MiB without a prefix, with a 64 KiB
+   prefix and with a prefix too short for their offsets, and streams with
+   length runs and long sequences all along).  Bytes, lengths, statuses
    and tables must be equal: a byte codec has no tolerance;
 3. the 64 KiB independent-block path at full size: each Silesia stand-in
    member (scale 1.0: 211,938,580 bytes) through ``compress_frame_parallel(block_size=65536,
@@ -134,7 +139,8 @@ def phase_env():
     log = build.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "Compiling entry" in line or line.startswith("=="):
+            if ("registers" in line or "Compiling entry" in line or "stack frame" in line
+                    or line.startswith("==")):
                 print("  " + line.strip())
     return smi
 
@@ -151,9 +157,9 @@ def check_compress(members):
     per = 4
     names = list(members)
 
-    def batch(datas, cursors, caps, accel, tables, prime):
+    def batch(datas, cursors, caps, accel, tables, prime, toffs=None, width=0):
         n = len(datas)
-        width = max(len(d) for d in datas)
+        width = max(width, max(len(d) for d in datas))
         arr = np.zeros((n, width), np.uint8)
         for i, d in enumerate(datas):
             arr[i, : len(d)] = np.frombuffer(d, np.uint8)
@@ -163,7 +169,7 @@ def check_compress(members):
 
         return (
             torch.from_numpy(arr), i32([len(d) for d in datas]), i32(cursors), i32(caps),
-            i32([accel] * n), i32([0] * n), i32(prime), torch.from_numpy(tables),
+            i32([accel] * n), i32(toffs or [0] * n), i32(prime), torch.from_numpy(tables),
         )
 
     # A: the main path's shape — 64 KiB blocks, U32 tables, cap = block size
@@ -225,6 +231,50 @@ def check_compress(members):
                                      np.zeros((4, U32_SLOTS), np.int32), [1, 1, 1, 0])
     cases["linked_big_rows"][1][3] = len(first)  # the zero tail is not input
     out_caps = {"linked_big_rows": blk + 16}
+    # G: the edges of the warp-wide parse.  Stale U16 and U32 tables behind a
+    # table offset, on rows whose probes collide inside one batch (a run of
+    # zeros, periods 2, 3 and 5) and on corpus rows, from cursor 0 and primed
+    # in the kernel from cursor 100: a candidate forwarded between lanes must
+    # take a slot's trip through the slot type and the offset
+    collide = [bytes(60000), b"ab" * 30000, b"abc" * 20000, b"hello" * 12000] + small[:4]
+    k = len(collide)
+    for u16, slots, top in ((True, U16_SLOTS, 1 << 16), (False, U32_SLOTS, 1 << 32)):
+        stale = np.array([[rnd.randrange(top) if rnd.random() < 0.5 else 0 for _ in range(slots)]
+                          for _ in collide], dtype=np.uint32).view(np.int32)
+        for toff in (40000, 65535, 70001):
+            tag = f"{'u16' if u16 else 'u32'}_toff{toff}"
+            cases[f"collide_{tag}"] = batch(collide, [0] * k, [-1] * k, 1, stale, [0] * k,
+                                            [toff] * k)
+            cases[f"collide_primed_{tag}"] = batch(collide, [100] * k, [-1] * k, 1, stale,
+                                                   [1] * k, [toff] * k)
+    # acceleration 8 on long incompressible rows, so steps pass 32 and one
+    # batch spans more than a page; then a literal run of a megabyte before a
+    # far copy shifted by one byte (a long backtrack), and the same tail
+    # repeated three times (a backtrack across repeats)
+    noise = rnd.randbytes((1 << 20) + 12345)
+    far = [noise, noise + b"#" + noise[-60000:], noise + noise[-60000:] * 3]
+    for accel in (1, 8):
+        cases[f"incompressible_far_copy_accel{accel}"] = batch(
+            far, [0] * 3, [-1] * 3, accel, np.zeros((3, U32_SLOTS), np.int32), [0] * 3)
+    # rows of 0, 5, 12 and 13 bytes, and rows whose cursor is their end
+    tiny = [b"", b"abcde", b"a" * 12, b"a" * 13, b"abcdabcdabcdabcdabcd", small[0][:3000]]
+    cases["tiny_rows"] = batch(tiny, [0, 0, 0, 0, 20, 3000], [-1] * 6, 1,
+                               np.zeros((6, U32_SLOTS), np.int32), [0, 0, 0, 0, 1, 1])
+    # rows whose base is not 16-byte aligned: a width of 5 modulo 16
+    odd = [b[:65536 - 11 * j] for j, b in enumerate(blocks[:6])]
+    cases["odd_row_bases"] = batch(odd, [0] * 6, [-1] * 6, 1, np.zeros((6, U32_SLOTS), np.int32),
+                                   [0] * 6, width=65536 + 5)
+    odd = [dic + b[:60000] for b in blocks[:3]]
+    cases["odd_row_bases_window"] = batch(odd, [65536] * 3, [60000] * 3, 1,
+                                          np.zeros((3, U32_SLOTS), np.int32), [1] * 3,
+                                          width=2 * 65536 + 7)
+    # one row under every cap from 0 up: each group boundary aborts once, the
+    # ones right after a ``cursor - 2`` re-insert among them (tables compared)
+    row = blocks[0][:1500] + bytes(40) + rnd.randbytes(60)
+    size = len(compress_whole(kc, row))
+    caps = list(range(size + 2))
+    cases["cap_sweep"] = batch([row] * len(caps), [0] * len(caps), caps, 1,
+                               np.zeros((len(caps), U32_SLOTS), np.int32), [0] * len(caps))
 
     err = 0
     timing = {}
@@ -238,8 +288,9 @@ def check_compress(members):
         got = kc.compress_batch(*dev_args, cap)
         torch.cuda.synchronize()
         err = max(err, same(f"compress[{name}]", got, want))
+        n_rows = len(args[1])
         n_inc = int((want[2] == 1).sum())
-        print(f"  compress[{name}]: {len(args[1])} blocks, {n_inc} incompressible, "
+        print(f"  compress[{name}]: {n_rows} blocks, {n_inc} incompressible, "
               f"equal to plain")
         if name == "u32_main":
             if not n_inc:
@@ -248,7 +299,30 @@ def check_compress(members):
             moved = int(args[1].sum()) + int(want[1].sum()) + 2 * 4 * U32_SLOTS * len(args[1])
             timing = dict(ms=ms, plain_ms=plain_ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
                           shape=f"{n} x 64 KiB blocks, U32 tables, cap = block size")
+        if name == "cap_sweep" and n_inc != n_rows - 2:
+            fail(f"compress[cap_sweep]: {n_inc} of {n_rows} rows aborted")
+        # the frame rows that carry the big-block paths, one row a launch
+        for case, i, label in (("big_rows", 1, "one 4 MiB row"),
+                               ("linked_big_rows", 0, "one [64 KiB window | 4 MiB block] row")):
+            if name == case:
+                one = [a[i : i + 1].contiguous() for a in dev_args]
+                ms = cuda_ms(lambda: kc.compress_batch(*one, cap), reps=3)
+                moved = int(args[1][i]) + int(want[1][i]) + 2 * 4 * U32_SLOTS
+                timing.setdefault("at_frame_rows", {})[label] = dict(
+                    ms=ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3, n=int(args[1][i]),
+                    out=int(want[1][i]))
+                print(f"  compress at the frame path's rows, {label} ({int(args[1][i]):,d} B -> "
+                      f"{int(want[1][i]):,d} B): {ms:.3f} ms on the card, bound "
+                      f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return dict(err=err, **timing)
+
+
+def compress_whole(kc, row: bytes) -> bytes:
+    """``row`` through the compressor's plain version, no cap."""
+    from lz4tpu_torch.spec.table import U32_SLOTS
+
+    payload, _ = kc.parse_plain(row, 0, -1, 1, 0, False, [0] * U32_SLOTS, False, 2 * len(row) + 16)
+    return payload
 
 
 def lane_edge_payloads():
@@ -437,6 +511,64 @@ def mutate(r: random.Random, buf: bytes, depth: int = 0) -> bytes:
     return bytes(b)
 
 
+def lsic(v: int) -> bytes:
+    return b"" if v < 15 else b"\xff" * ((v - 15) // 255) + bytes([(v - 15) % 255])
+
+
+def seq(lit: bytes = b"", offset: int = 0, ml: int = 0) -> bytes:
+    """One LZ4 sequence; ``ml == 0``: literals only (a block's last one)."""
+    if not ml:
+        return bytes([min(len(lit), 15) << 4]) + lsic(len(lit)) + lit
+    return (bytes([(min(len(lit), 15) << 4) | min(ml - 4, 15)]) + lsic(len(lit)) + lit
+            + offset.to_bytes(2, "little") + lsic(ml - 4))
+
+
+def decoder_edge_streams():
+    """Hand-made streams for the edges of a parse that takes 32 sequences at
+    a time (limit 2048): batches that fill exactly, by one less and by one
+    more, every match reading the one before it; every way a stream may end
+    at a batch boundary (literals, a match, a stray byte that re-reads as a
+    token, cleanly or not); each error kind at entry 0, 1 and 31 of a batch
+    and 0 of the next, with a later error behind it; matches that read older
+    output, their own literals and the sequences before them in one batch."""
+    minimal = seq(b"", 4, 4)
+    blocks, prefixes = [], []
+    for count in (1, 31, 32, 33, 64, 65):
+        body = seq(b"abcd", 4, 4) + minimal * (count - 1)
+        for tail in (seq(b"xyz"), b"", b"\x00", b"\x10"):
+            blocks.append(body + tail)
+            prefixes.append(b"")
+    bad = (seq(b"", 0, 4), seq(b"", 0xFFFF, 4), seq(b"", 4, 4000), b"\xf0\xff\xff\xff")
+    for entry in (0, 1, 31, 32):
+        for b in bad:
+            blocks.append(minimal * entry + b + bad[0] + seq(b"zz"))
+            prefixes.append(b"wxyz")
+    blocks.append(seq(b"AB", 150, 20) + seq(b"CDEF", 4, 12) + seq(b"", 30, 25) + seq(b"G", 60, 59)
+                  + seq(b"HI", 3, 40) + seq(b"tail"))
+    prefixes.append(bytes(range(200)))
+    return blocks, prefixes
+
+
+def decoder_window_streams(r: random.Random, count: int = 24):
+    """Seeded streams of about 300 KiB whose sequences carry length runs,
+    long literal runs and long matches all along, so that the ends of the
+    decoder's moving window fall inside tokens' length runs, literals and
+    offsets at many phases, and sequences longer than 8 KiB sit among short
+    ones.  Returns (blocks, the largest output size)."""
+    blocks, largest = [], 0
+    for _ in range(count):
+        out, size = bytearray(seq(r.randbytes(64), 64, 8)), 72
+        while len(out) < 300_000:
+            lit = r.choice((0, 1, 14, 15, 16, 40, 269, 270, 300, 700, 1200))
+            ml = r.choice((4, 5, 18, 19, 20, 273, 274, 300, 2000, 9000))
+            size += lit
+            out += seq(r.randbytes(lit), r.randrange(1, min(size, 65535) + 1), ml)
+            size += ml
+        blocks.append(bytes(out + seq(r.randbytes(r.randrange(0, 40)))))
+        largest = max(largest, size + 40)
+    return blocks, largest
+
+
 def check_decoders(members):
     """The four decoders against their plain version (one function for all
     of them: they share a contract)."""
@@ -506,6 +638,32 @@ def check_decoders(members):
         torch.cuda.synchronize()
         report[name]["err"] = max(report[name]["err"], same(f"{name}[odd rows]", got, want))
     print(f"  all four on rows of {odd[0].shape[1]} bytes (not a multiple of 16): equal to plain")
+
+    # the edges of decode_big's parse, which takes 32 sequences at a time
+    blocks, prefixes = decoder_edge_streams()
+    eargs = tensors(blocks, prefixes)
+    want, _ = plain(eargs, 2048)
+    st = want[2].numpy()
+    kinds = {int(s): int((st == s).sum()) for s in np.unique(st)}
+    if len(kinds) < 5:
+        fail(f"decoders: the edge streams did not reach every status: {kinds}")
+    for name, fn in decoders.items():
+        got = fn(*(a.cuda() for a in eargs), 2048)
+        torch.cuda.synchronize()
+        report[name]["err"] = max(report[name]["err"], same(f"{name}[edge streams]", got, want))
+    blocks, largest = decoder_window_streams(random.Random(0x3E4D))
+    wargs = tensors(blocks, [b""] * len(blocks))
+    wlimit = -(-largest // 16) * 16
+    want, _ = plain(wargs, wlimit)
+    if int((want[2] != 0).sum()):
+        fail("decoders: a window stream is not valid")
+    for name in ("decode_v4", "decode_big", "decode_v3"):
+        got = decoders[name](*(a.cuda() for a in wargs), wlimit)
+        torch.cuda.synchronize()
+        report[name]["err"] = max(report[name]["err"], same(f"{name}[window streams]", got, want))
+    print(f"  {len(eargs[1])} edge streams (statuses {kinds}) on all four, {len(blocks)} streams of "
+          f"{len(blocks[0]):,d} B with length runs and long sequences all along on v4, big and "
+          f"v3: equal to plain")
 
     # seeded mutations of compressed blocks, half behind a prefix they may
     # reach into: 3,000 of small blocks and 600 random strings (limit 8 KiB),
@@ -598,6 +756,15 @@ def check_decoders(members):
                             bound_ms=moved / HBM_BYTES_PER_S * 1e3, shape=shape)
     print(f"  at the big-block shape ({shape}): "
           + ", ".join(f"{name} {ms:.3f} ms" for name, ms in at_big.items()))
+    # one block of the largest size alone: what a wave of a linked frame waits for
+    one = [a[-1:].contiguous() for a in dev]
+    one_ms = cuda_ms(lambda: dbig.decode_big(*one, limit))
+    moved = int(targs[1][-1]) + len(big_raw[-1])
+    report["decode_big"]["at_frame_rows"] = {"one 4 MiB block": dict(
+        ms=one_ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3, n=int(targs[1][-1]),
+        out=len(big_raw[-1]))}
+    print(f"  decode_big on one block alone ({int(targs[1][-1]):,d} B -> {len(big_raw[-1]):,d} B): "
+          f"{one_ms:.3f} ms on the card, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return report
 
 
@@ -1194,6 +1361,10 @@ def main() -> int:
             rows[-1]["at_frame_rows"] = c["at_frame_rows"]
         if not rows[-1]["launches"]:
             fail(f"kernel {name} was launched on no path")
+    print("kernels by time lost on the paths (launches, summed ms, summed bound ms, gap ms):")
+    for r in sorted(rows, key=lambda r: r["main_bound_ms"] - r["main_ms"]):
+        print(f"  {r['name']:12s} {r['launches']:4d} {r['main_ms']:10.1f} {r['main_bound_ms']:8.3f} "
+              f"{r['main_ms'] - r['main_bound_ms']:10.1f}")
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,15 +27,27 @@
 //     window (a byte outside it, e.g. in a length run longer than the
 //     window, is read from device memory instead, so the window is a cache,
 //     not a limit).
-//   * Warp 0 parses ahead (lane 0): while the four copy warps move batch k
-//     (up to 16 sequences, about 8 KiB of output), it parses batch k+1 into
-//     the other of two queues in shared memory.  One block-wide barrier
-//     ends a batch; between the sequences of a batch only the copy warps
-//     meet, at a named barrier.  Measured on this card, copying hides
-//     entirely behind the parse, which one thread runs at a few hundred
-//     cycles per sequence: the common sequence (both lengths in the token,
-//     all of it in the window) therefore takes a short path through the
-//     parser, and everything else the shared parse_seq.
+//   * Warp 0 parses ahead, as a warp: while the eight copy warps move batch
+//     k (up to 32 sequences, about 8 KiB of output), it parses batch k+1
+//     into the other of two queues in shared memory.  The chain is cut to
+//     one walk over the tokens: every lane follows the same walk (token,
+//     length runs, next token: one or two dependent shared-memory loads a
+//     sequence) and lane k keeps what the walk saw at sequence k.  Off the
+//     chain, lane k then reads sequence k's offset, a warp prefix sum over
+//     the lengths gives every output position, each lane makes the checks
+//     of the shared parser in their order, and a ballot finds the first
+//     failing sequence: the batch ends before it with its status.  A
+//     sequence the walk cannot take whole (the stream or the window ends
+//     inside it, or it is longer than 8 KiB) opens a batch of its own
+//     through the shared parse_seq.
+//   * The copy warps meet only where sequences depend on each other.  Lane
+//     k also decides whether sequence k's match reads output that an earlier
+//     sequence of the same batch writes.  All literals and all matches that
+//     do not are copied at once, a warp a sequence; then the copy warps
+//     meet once at a named barrier, and one warp copies the dependent
+//     matches in stream order (the multi-round resolution of "massively
+//     parallel decompression", arXiv 1606.00519, cut to two rounds).  One
+//     block-wide barrier ends a batch.
 //   * A match whose source lies in its own sequence's literals reads them
 //     from the window, so literals and match are copied in one step.
 //   * A sequence longer than 8 KiB (long literal runs of stored-like data,
@@ -46,8 +58,8 @@
 //     piece is staged through the window, so it too leaves device memory
 //     in 16-byte loads.
 // One block is resident per SM (192 KiB of shared memory), so a launch of
-// up to 132 blocks runs in one wave.  cp.async/TMA read-ahead and a parse
-// split over several threads are left for later.
+// up to 132 blocks runs in one wave.  The window is still loaded by all
+// threads between two batches; a cp.async/TMA read-ahead is left for later.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -56,7 +68,9 @@
 
 namespace {
 
-constexpr int COPIERS = 128;           // warps 1-4
+constexpr int COPIERS = 256;           // warps 1-8
+constexpr int COPY_WARPS = COPIERS / 32;
+constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int THREADS = 32 + COPIERS;  // warp 0 parses ahead
 constexpr int RING = 1 << 17;          // output ring, bytes (power of two)
 constexpr int RMASK = RING - 1;
@@ -64,7 +78,7 @@ constexpr int CWIN = 1 << 16;          // compressed-stream window, bytes
 constexpr int FLUSH_AT = 1 << 14;      // flush when this much is unflushed
 constexpr int PIECE = 1 << 14;         // long sequences move in such pieces
 constexpr int SMALL = 1 << 13;         // longer sequences take the piece path
-constexpr int BATCH = 16;              // sequences parsed ahead per barrier
+constexpr int BATCH = 32;              // sequences parsed ahead per barrier: one a lane
 constexpr int BATCH_BYTES = 1 << 13;   // a batch ends once it holds this much output
 constexpr int REFILL_MARGIN = 3 << 13; // window left for the batch being parsed
 constexpr int MAX_DISTANCE = 1 << 16;  // offsets are u16
@@ -74,12 +88,15 @@ constexpr int SMEM_BYTES = RING + CWIN;
 // a match may still read: 64 KiB of history + unflushed + one step < RING
 static_assert(BATCH_BYTES + SMALL <= PIECE, "a batch is at most one piece");
 static_assert(MAX_DISTANCE + FLUSH_AT + 16 + 2 * PIECE <= RING, "ring too small");
-// the window holds the batch being copied and the batch being parsed
-static_assert(2 * (BATCH_BYTES + SMALL) + REFILL_MARGIN + 64 * BATCH <= CWIN, "window too small");
-
-struct BigSeq {
-    int next_pos, lit_src, lit_len, match_len, offset, status;
-};
+// the window holds the batch being copied and the batch being parsed: their
+// literals, and per sequence a token, an offset and two length runs of at
+// most SMALL / 255 + 1 bytes each
+constexpr int SEQ_OVERHEAD = 3 + 2 * (SMALL / 255 + 1);
+static_assert(BATCH == 32, "lane k parses sequence k");
+static_assert(REFILL_MARGIN >= BATCH_BYTES + SMALL + SEQ_OVERHEAD * BATCH,
+              "the batch being parsed must fit behind the refill margin");
+static_assert(2 * (BATCH_BYTES + SMALL) + REFILL_MARGIN + 2 * SEQ_OVERHEAD * BATCH <= CWIN,
+              "window too small");
 
 struct Entry {
     int op, lit_src, lit_len, match_len, offset;
@@ -89,11 +106,12 @@ constexpr int FLAG_LAST = 1;  // the stream ends with this batch
 constexpr int FLAG_LONG = 2;  // one sequence longer than SMALL, alone
 
 struct Batch {
-    int count;     // sequences in e[]
-    int next_pos;  // compressed position after them
-    int end_op;    // output position after them
-    int status;    // not OK: the sequence after them failed, decoding ends
+    int count;           // sequences in e[]
+    int next_pos;        // compressed position after them
+    int end_op;          // output position after them
+    int status;          // not OK: the sequence after them failed, decoding ends
     int flags;
+    unsigned dependent;  // bit k: e[k]'s match reads what e[0..k) write
     Entry e[BATCH];
 };
 
@@ -140,71 +158,26 @@ __device__ __forceinline__ int flush(const uint8_t* ring, uint8_t* o, int fl, in
     return end;
 }
 
-__device__ __forceinline__ BigSeq parse_at(const Window& w, int n, int pos, int op, int plen,
-                                           long long limit, long long out_cap) {
-    BigSeq q;
-    // the common sequence: both lengths in the token, token to offset inside
-    // the window.  The same checks in the same order as parse_seq_with; the
-    // window ends at or before n, so the stream cannot end inside.
-    if (pos + 18 <= w.end) {
-        const uint8_t* c = w.c;
-        const int token = c[pos];
-        const int lit = token >> 4;
-        if (lit != 0xF && (token & 0xF) != 0xF) {
-            const int at = pos + 1 + lit;
-            const int offset = c[at] | (c[at + 1] << 8);
-            const int ml = (token & 0xF) + 4;
-            const int mop = op + lit;
-            q.next_pos = at + 2;
-            q.lit_src = pos + 1;
-            q.lit_len = lit;
-            q.match_len = ml;
-            q.offset = offset;
-            q.status = mop > out_cap || mop + ml > limit ? lz4t::ERR_MEMORY_LIMIT
-                       : offset == 0                      ? lz4t::ERR_ZERO_OFFSET
-                       : offset > mop + plen              ? lz4t::ERR_INVALID_OFFSET
-                                                          : lz4t::OK;
-            return q;
-        }
-    }
-    const lz4t::Seq s = lz4t::parse_seq_with(w, n, pos, op, plen, limit, out_cap);
-    q.next_pos = (int)s.next_pos;
-    q.lit_src = (int)s.lit_src;
-    q.lit_len = (int)s.lit_len;
-    q.match_len = (int)s.match_len;
-    q.offset = (int)s.offset;
-    q.status = s.status;
-    return q;
-}
-
-// Lane 0 of warp 0: parse the next batch, from (pos, op).  A batch with no
-// sequence has FLAG_LAST or a failing status.
-__device__ void parse_batch(Batch& bt, const Window& w, int n, int pos, int op, int plen,
-                            long long limit, long long out_cap) {
-    const int start_op = op;
+// Lane 0 of warp 0: the batch of one sequence that the walk cannot take,
+// from (pos, op), through the shared parser.  A batch with no sequence has
+// FLAG_LAST or a failing status.
+__device__ void parse_single(Batch& bt, const Window& w, int n, int pos, int op, int plen,
+                             long long limit, long long out_cap) {
     int count = 0, flags = 0, status = lz4t::OK;
-    for (;;) {
-        if (pos >= n) {
-            flags |= FLAG_LAST;
-            break;
-        }
-        const BigSeq q = parse_at(w, n, pos, op, plen, limit, out_cap);
-        if (q.status != lz4t::OK) {
-            status = q.status;
-            break;
-        }
-        const int len = q.lit_len + q.match_len;
-        if (len > SMALL) {
-            if (count) break;  // it opens the next batch
-            flags |= FLAG_LONG;
-        }
-        bt.e[count++] = Entry{op, q.lit_src, q.lit_len, q.match_len, q.offset};
-        pos = q.next_pos;
-        op += len;
-        if (len > SMALL || count == BATCH || op - start_op >= BATCH_BYTES ||
-            (w.end < n && pos + SMALL + 64 > w.end)) {  // or the window has to move first
+    if (pos >= n) {
+        flags = FLAG_LAST;
+    } else {
+        const lz4t::Seq s = lz4t::parse_seq_with(w, n, pos, op, plen, limit, out_cap);
+        if (s.status != lz4t::OK) {
+            status = s.status;
+        } else {
+            const int len = (int)(s.lit_len + s.match_len);
+            if (len > SMALL) flags |= FLAG_LONG;
+            bt.e[count++] =
+                Entry{op, (int)s.lit_src, (int)s.lit_len, (int)s.match_len, (int)s.offset};
+            pos = (int)s.next_pos;
+            op += len;
             if (pos >= n) flags |= FLAG_LAST;
-            break;
         }
     }
     bt.count = count;
@@ -212,6 +185,135 @@ __device__ void parse_batch(Batch& bt, const Window& w, int n, int pos, int op, 
     bt.end_op = op;
     bt.status = status;
     bt.flags = flags;
+    bt.dependent = 0;
+}
+
+// Warp 0: parse the next batch, from (pos, op).
+__device__ void parse_batch(Batch& bt, const Window& w, int n, int pos, int op, int plen,
+                            long long limit, long long out_cap, int lane) {
+    const int start_op = op, start_pos = pos;
+    // The walk, the same in every lane: sequences that lie whole inside the
+    // window with their offset (so the stream does not end inside them) and
+    // are at most SMALL long.  Lane k keeps sequence k.
+    const uint8_t* c = w.c;
+    const int lim = w.end;
+    int count = 0, bytes = 0;
+    int my_src = 0, my_lit = 0, my_ml = 0;
+    for (;;) {
+        // the common sequence, both lengths in the token and all of it well
+        // inside the window: the chain from one token to the next is this
+        // load, a shift and an add, and one test decides whether it goes on
+        while (count < BATCH && bytes < BATCH_BYTES && pos + 18 <= lim) {
+            const int token = c[pos];
+            const int lit = token >> 4, ml = (token & 0xF) + 4;
+            if (lit == 0xF || ml == 0xF + 4) break;
+            if (count == lane) {
+                my_src = pos + 1;
+                my_lit = lit;
+                my_ml = ml;
+            }
+            count++;
+            bytes += lit + ml;
+            pos += lit + 3;
+        }
+        if (count >= BATCH || bytes >= BATCH_BYTES || pos >= lim) break;
+        // any other sequence: length runs, or the window's end close by
+        const int token = c[pos];
+        int q = pos + 1;
+        int lit = token >> 4;
+        bool whole = true;
+        if (lit == 0xF) {
+            int more;
+            do {
+                if (q >= lim) {
+                    whole = false;
+                    break;
+                }
+                more = c[q++];
+                lit += more;
+            } while (more == 0xFF);
+        }
+        const int src = q;
+        q += lit;
+        if (!whole || q + 2 > lim) break;
+        q += 2;
+        int ml = token & 0xF;
+        if (ml == 0xF) {
+            int more;
+            do {
+                if (q >= lim) {
+                    whole = false;
+                    break;
+                }
+                more = c[q++];
+                ml += more;
+            } while (more == 0xFF);
+        }
+        ml += 4;
+        if (!whole || lit + ml > SMALL) break;
+        if (count == lane) {
+            my_src = src;
+            my_lit = lit;
+            my_ml = ml;
+        }
+        count++;
+        bytes += lit + ml;
+        pos = q;
+    }
+    if (count == 0) {
+        if (lane == 0) parse_single(bt, w, n, start_pos, start_op, plen, limit, out_cap);
+        __syncwarp();
+        return;
+    }
+    // Off the chain, lane k for sequence k: output position by a prefix sum,
+    // offset, the checks of parse_seq_with in their order.
+    const bool mine = lane < count;
+    const int len = mine ? my_lit + my_ml : 0;
+    int upto = len;
+    for (int d = 1; d < 32; d <<= 1) {
+        const int below = __shfl_up_sync(FULL, upto, d);
+        if (lane >= d) upto += below;
+    }
+    const int my_op = start_op + upto - len;
+    const long long mop = (long long)my_op + my_lit;
+    int offset = 0, st = lz4t::OK;
+    if (mine) {
+        const int at = my_src + my_lit;
+        offset = c[at] | (c[at + 1] << 8);
+        st = mop > out_cap || mop + my_ml > limit ? lz4t::ERR_MEMORY_LIMIT
+             : offset == 0                        ? lz4t::ERR_ZERO_OFFSET
+             : offset > mop + plen                ? lz4t::ERR_INVALID_OFFSET
+                                                  : lz4t::OK;
+    }
+    // the first failing sequence ends the batch before it
+    const unsigned bad = __ballot_sync(FULL, st != lz4t::OK);
+    int status = lz4t::OK;
+    int end_op = start_op + __shfl_sync(FULL, upto, 31);
+    if (bad) {
+        const int first = __ffs(bad) - 1;
+        status = __shfl_sync(FULL, st, first);
+        end_op = __shfl_sync(FULL, my_op, first);
+        count = first;
+    }
+    // a match that reads what an earlier sequence of this batch writes waits
+    // for it; its own literals it reads from the window
+    bool waits = false;
+    if (lane < count) {
+        const int from = (int)mop - offset;
+        const int upper = min(from + min(my_ml, offset), my_op);
+        waits = from < my_op && upper > start_op;
+        bt.e[lane] = Entry{my_op, my_src, my_lit, my_ml, offset};
+    }
+    const unsigned dependent = __ballot_sync(FULL, waits);
+    if (lane == 0) {
+        bt.count = count;
+        bt.next_pos = pos;
+        bt.end_op = end_op;
+        bt.status = status;
+        bt.flags = status == lz4t::OK && pos >= n ? FLAG_LAST : 0;
+        bt.dependent = dependent;
+    }
+    __syncwarp();
 }
 
 __global__ void __launch_bounds__(THREADS, 1)
@@ -238,7 +340,7 @@ decode_big_kernel(const uint8_t* __restrict__ comp, long long comp_stride,
     for (int j = tid; j < seed; j += THREADS) ring[(-1 - j) & RMASK] = pend[-1 - j];
     load_window(w, win, n, 0, tid);
     __syncthreads();
-    if (tid == 0) parse_batch(batch[0], w, n, 0, 0, plen, limit, out_stride);
+    if (tid < 32) parse_batch(batch[0], w, n, 0, 0, plen, limit, out_stride, tid);
     __syncthreads();
 
     int op = 0;  // output position: ring and device memory share it
@@ -291,29 +393,49 @@ decode_big_kernel(const uint8_t* __restrict__ comp, long long comp_stride,
                     load_window(w, win, n, next_pos, tid);
                     __syncthreads();
                 }
-                if (tid == 0)
-                    parse_batch(batch[cur ^ 1], w, n, next_pos, end_op, plen, limit, out_stride);
+                if (tid < 32)
+                    parse_batch(batch[cur ^ 1], w, n, next_pos, end_op, plen, limit, out_stride,
+                                tid);
             }
-        } else if (tid == 0) {
-            if (!done) parse_batch(batch[cur ^ 1], w, n, next_pos, end_op, plen, limit, out_stride);
-        } else if (tid >= 32) {
-            const int t = tid - 32;
-            for (int k = 0; k < count; k++) {
+        } else if (tid < 32) {
+            if (!done)
+                parse_batch(batch[cur ^ 1], w, n, next_pos, end_op, plen, limit, out_stride, tid);
+        } else {
+            // round one: every sequence's literals, and every match that
+            // reads only older output or its own literals, a warp a sequence
+            const int warp = (tid - 32) >> 5, lane = tid & 31;
+            const unsigned dependent = bt.dependent;
+            for (int k = warp; k < count; k += COPY_WARPS) {
                 const Entry q = bt.e[k];
-                for (int j = t; j < q.lit_len; j += COPIERS)
+                for (int j = lane; j < q.lit_len; j += 32)
                     ring[(q.op + j) & RMASK] = (uint8_t)w(q.lit_src + j);
+                if ((dependent >> k) & 1) continue;
                 const int mop = q.op + q.lit_len;
                 const int base = mop - q.offset;
-                for (int j = t; j < q.match_len; j += COPIERS) {
+                for (int j = lane; j < q.match_len; j += 32) {
                     const int s = base + (q.offset >= q.match_len ? j : j % q.offset);
                     // a source inside this sequence's literals may not be in
                     // the ring yet: take it from the compressed stream
                     ring[(mop + j) & RMASK] =
                         s >= q.op ? (uint8_t)w(q.lit_src + (s - q.op)) : ring[s & RMASK];
                 }
-                // the next sequence may read what this one wrote: the copy
-                // warps meet (barrier 1; barrier 0 is __syncthreads)
-                if (k + 1 < count) asm volatile("bar.sync 1, %0;" ::"n"(COPIERS) : "memory");
+            }
+            if (dependent) {
+                // round two: the copy warps meet once (barrier 1; barrier 0 is
+                // __syncthreads), then one warp takes the waiting matches in
+                // stream order, each complete before the next begins
+                asm volatile("bar.sync 1, %0;" ::"n"(COPIERS) : "memory");
+                if (warp == 0) {
+                    for (unsigned left = dependent; left; left &= left - 1) {
+                        const Entry q = bt.e[__ffs(left) - 1];
+                        const int mop = q.op + q.lit_len;
+                        const int base = mop - q.offset;
+                        for (int j = lane; j < q.match_len; j += 32)
+                            ring[(mop + j) & RMASK] =
+                                ring[(base + (q.offset >= q.match_len ? j : j % q.offset)) & RMASK];
+                        __syncwarp();
+                    }
+                }
             }
         }
         op = end_op;

@@ -2,9 +2,13 @@
 batch and single-block host APIs.
 
 Counterpart of ``lz4tpu/kernels/compress.py``.  The greedy parse of the
-reference (``src/raw/compress/mod.rs:147-260``) is a strictly sequential
-dependent loop, so one block is one thread's parse
-(``csrc/compress.cu``); throughput comes from many blocks per launch.
+reference (``src/raw/compress/mod.rs:147-260``) is serial in what it
+decides, not in its work: one block is one warp's parse
+(``csrc/compress.cu``), which probes 32 positions of the skip schedule at
+once and takes the first hit, the match the serial loop takes.
+``parse_plain`` is the serial loop and the specification;
+``parse_batched_plain`` follows the kernel's steps and is held equal to it
+by the tests.
 
 Tensor contract of ``compress_batch`` (kernel and plain version alike):
 
@@ -193,7 +197,147 @@ def parse_plain(data: bytes, init_cursor: int, cap: int, acceleration: int, toff
     return bytes(out), STATUS_OK
 
 
-def compress_plain(data, n, cursor, cap, accel, toff, prime, tables, out_capacity):
+WARP = 32
+
+
+def _probe(k: int, literal_start: int, acceleration: int):
+    """(position, step) of probe ``k`` of a search that began at
+    ``literal_start``, in closed form: advances go 1, 1, a, a, ... with the
+    step assignment lagging one miss, so step(k) = a + ((k - 2) >> 6)."""
+    if k < 2:
+        return literal_start + k, 1
+    m = k - 2
+    q, r = m >> SKIP_TRIGGER, m & ((1 << SKIP_TRIGGER) - 1)
+    return literal_start + 2 + m * acceleration + 32 * q * (q - 1) + q * r, acceleration + q
+
+
+def _lcp_rounds(data: bytes, a: int, a_end: int, b: int, n: int, m: int = 0) -> int:
+    """``_lcp`` as the warp takes it, from ``m`` bytes known to be equal: 4
+    bytes a lane, 128 a round, the first lane that stops (a difference, or
+    the limit inside its share) decides."""
+    limit = min(a_end - a, n - b)
+    while True:
+        for lane in range(WARP):
+            off = m + 4 * lane
+            share = min(limit - off, 4)
+            cnt = 0
+            while cnt < share and data[a + off + cnt] == data[b + off + cnt]:
+                cnt += 1
+            if cnt < 4:
+                return off + cnt
+        m += 4 * WARP
+
+
+def parse_batched_plain(data: bytes, init_cursor: int, cap: int, acceleration: int, toff: int,
+                        prime: bool, tab: list, u16: bool, out_capacity: int):
+    """One block's greedy parse by the CUDA kernel's steps (a model for the
+    tests; ``parse_plain`` is the specification): batches of 32 probe
+    positions from the skip schedule, every lane reading the table as it
+    stood before the batch, in-batch collisions forwarded from the nearest
+    lower lane through the slot type, the first hit or tail lane decides,
+    and lanes up to it write the table.  Same arguments and results as
+    ``parse_plain``."""
+    n = len(data)
+    hashes = (hash_all_u16(data) if u16 else hash_all_u32(data)).tolist()
+    mask = 0xFFFF if u16 else 0xFFFFFFFF
+    cap = (1 << 62) if cap < 0 else cap
+
+    def write_group(lanes):
+        """Lanes (hash, position) write their slots, the highest lane of a
+        hash group last."""
+        last = {}
+        for h, p in lanes:
+            last[h] = p
+        for h, p in last.items():
+            tab[h] = (p + toff) & mask
+
+    if prime and init_cursor >= 8:
+        for p0 in range(0, init_cursor - 7, 3 * WARP):
+            write_group([(hashes[p], p)
+                         for p in range(p0, min(p0 + 3 * WARP, init_cursor - 7), 3)])
+    out = bytearray()
+    cursor = min(init_cursor, n)
+    while cursor < n:
+        literal_start = cursor
+        k0 = 0
+        while True:
+            lanes = []  # (hash, position) of the lanes that probe, in lane order
+            hit = None
+            tail = False
+            for lane in range(WARP):
+                p, step = _probe(k0 + lane, literal_start, acceleration)
+                if p + step > n - (LAST_LITERALS - 1):
+                    tail = True
+                    break
+                h = hashes[p]
+                # the nearest lower lane with this hash, else the slot
+                stored = next(((q + toff) & mask for g, q in reversed(lanes) if g == h), tab[h])
+                candidate = max(stored - toff, 0)
+                lanes.append((h, p))
+                if p != init_cursor and p - candidate <= 0xFFFF and candidate + MINMATCH <= n:
+                    # the lane holds 8 bytes of both sides: equal bytes among
+                    # them, at most the match's limit
+                    limit = min(n - MFLIMIT - p, n - candidate)
+                    equal = 0
+                    while equal < min(8, limit) and data[p + equal] == data[candidate + equal]:
+                        equal += 1
+                    if equal >= MINMATCH:
+                        hit = (p, candidate, equal, equal == 8 and limit > 8)
+                        break  # lanes above the first hit change nothing
+            write_group(lanes)
+            if hit or tail:
+                break
+            k0 += WARP
+        if tail:
+            literal_len = n - literal_start
+            group = 1 + _lsic_len(literal_len) + literal_len
+            if len(out) + group > cap or len(out) + group > out_capacity:
+                return bytes(out), STATUS_INCOMPRESSIBLE
+            out.append(min(literal_len, 0xF) << 4)
+            _lsic(out, literal_len)
+            out += data[literal_start:n]
+            return bytes(out), STATUS_OK
+        cursor, candidate, matching, open_ended = hit
+        if open_ended:  # the match goes on past the probe's 8 bytes
+            matching = _lcp_rounds(data, cursor, n - MFLIMIT, candidate, n, 8)
+        extra = matching - MINMATCH
+        offset = cursor - candidate
+        max_bt = cursor - literal_start
+        bt = 0
+        while True:  # 32 bytes a round, the first lane that fails decides
+            fails = [t for t in range(bt, bt + WARP)
+                     if not (t < max_bt and candidate - t > 0
+                             and data[cursor - t - 1] == data[candidate - t - 1])]
+            if fails:
+                bt = fails[0]
+                break
+            bt += WARP
+        extra += bt
+        cursor += matching
+        tab[hashes[cursor - 2]] = (cursor - 2 + toff) & mask
+        literal_end = cursor - extra - MINMATCH
+        literal_len = literal_end - literal_start
+        group = 1 + _lsic_len(literal_len) + literal_len + 2 + _lsic_len(extra)
+        if len(out) + group > cap or len(out) + group > out_capacity:
+            return bytes(out), STATUS_INCOMPRESSIBLE
+        out.append((min(literal_len, 0xF) << 4) | min(extra, 0xF))
+        _lsic(out, literal_len)
+        out += data[literal_start:literal_end]
+        out.append(offset & 0xFF)
+        out.append((offset >> 8) & 0xFF)
+        _lsic(out, extra)
+    return bytes(out), STATUS_OK
+
+
+def compress_batched_plain(data, n, cursor, cap, accel, toff, prime, tables, out_capacity):
+    """``compress_plain`` with ``parse_batched_plain`` as the parse: the
+    kernel's design on CPU tensors, used by the tests only."""
+    return compress_plain(data, n, cursor, cap, accel, toff, prime, tables, out_capacity,
+                          parse=parse_batched_plain)
+
+
+def compress_plain(data, n, cursor, cap, accel, toff, prime, tables, out_capacity,
+                   parse=parse_plain):
     """Plain version of the kernel on CPU tensors (same contract)."""
     n_blocks, s = tables.shape
     u16 = s == U16_SLOTS
@@ -209,7 +353,7 @@ def compress_plain(data, n, cursor, cap, accel, toff, prime, tables, out_capacit
     tab_out = table_out.numpy().view(np.uint32)
     for i in range(n_blocks):
         tab = tab_in[i].tolist()
-        payload, st = parse_plain(
+        payload, st = parse(
             rows[i, : n_l[i]].tobytes(), cur_l[i], cap_l[i], acc_l[i],
             toff_l[i] & 0xFFFFFFFF, prime_l[i] != 0, tab, u16, out_capacity,
         )

@@ -3,19 +3,24 @@
 
     python3 tools/torch_chip_decode_big_cost.py [--scale 0.5]
 
-Builds three variants of the kernel from the source in the tree (the
+Builds four variants of the kernel from the source in the tree (the
 variants are made here by editing a copy of the source, the kernel itself
 carries no switches) and times each on the first 4 MiB of every Silesia
 stand-in member, one block per launch:
 
 * ``kernel``: the kernel as it is;
 * ``no_copy``: the copy warps skip their copies (barriers kept), so what is
-  left is the parse ahead, the barriers, the flushes and the window loads;
+  left is the parse warp's walk and per-entry decode, the barriers, the
+  flushes and the window loads;
+* ``no_dependent_round``: every match is copied in round one as if it read
+  no output of its own batch, and the second round with its barrier is
+  gone: what the dependent matches cost;
 * ``parse_alone``: one thread walks the block with the shared parser,
-  reading device memory, nothing else runs: the floor of a one-thread parse.
+  reading device memory, nothing else runs: the floor of a one-thread
+  parse, and the count of sequences.
 
 Prints ms and cycles per sequence (at the SM clock nvidia-smi reports).
-The outputs of the two cut-down variants are wrong by design; only
+The outputs of the three cut-down variants are wrong by design; only
 ``kernel`` is checked, by chip_smoke.py.  Needs one CUDA card and nvcc.
 """
 
@@ -65,6 +70,13 @@ def variant_source(src: str, name: str) -> str:
                 sys.exit("decode_big.cu changed: a copy of the copy warps was not found")
             src = src.replace(copy, "if (false) " + copy)
         return src
+    if name == "no_dependent_round":
+        for old, new in (("                if ((dependent >> k) & 1) continue;\n", ""),
+                         ("            if (dependent) {\n", "            if (false) {\n")):
+            if src.count(old) != 1:
+                sys.exit(f"decode_big.cu changed: {old!r} was not found exactly once")
+            src = src.replace(old, new)
+        return src
     if name == "parse_alone":
         old, new = PARSE_ALONE
         if old not in src:
@@ -77,7 +89,7 @@ def build_variants(workdir: pathlib.Path):
     src = (ROOT / "lz4tpu_torch" / "csrc" / "decode_big.cu").read_text()
     nvcc = build._nvcc()
     procs = {}
-    for name in ("kernel", "no_copy", "parse_alone"):
+    for name in ("kernel", "no_copy", "no_dependent_round", "parse_alone"):
         cu = workdir / f"{name}.cu"
         cu.write_text(variant_source(src, name))
         lib = workdir / f"{name}.so"
