@@ -13,8 +13,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    (the plain version runs on a CPU copy): the lane compressor in its three
    modes (default: 128 chunks of 32 KiB and the edge payloads; window: rows
    with a full, a short, an unprimed and no window, a dictionary-seeded head
-   chunk, and the 384 chunks of three 4 MiB blocks with their in-block
-   windows; STRICT: also against the greedy compressor's kernel), the
+   chunk, the 384 chunks of three 4 MiB blocks with their in-block
+   windows, and the 32 rows of a linked 1 MiB segment, timed as one launch
+   of phase 5c; STRICT: also against the greedy compressor's kernel), the
    greedy compressor (U16/U32
    tables, acceleration 1 and 8, dictionary-primed tables with a cursor,
    in-kernel priming, caps that trigger Incompressible, the 1 MiB and
@@ -25,7 +26,10 @@ Phases, in order; any mismatch or exception exits non-zero:
    16-byte grid, one row under every cap) and the four decoders,
    decode128, decompress_v4, decode_big and decompress_v3 (64 KiB
    prefixes, hostile blocks, seeded mutations of valid blocks, hand-made
-   streams at the edges of a 32-sequence batch; for the last three also
+   streams at the edges of a 32-sequence batch, literal-heavy streams into
+   64 KiB many times decode128's window, one 64 KiB block behind a 64 KiB
+   prefix, timed on decode128 and decode_big as one wave of phase 5d; for
+   the last three also
    blocks of 256 KiB, 1 MiB and 4 MiB without a prefix, with a 64 KiB
    prefix and with a prefix too short for their offsets, and streams with
    length runs and long sequences all along).  Bytes, lengths, statuses
@@ -446,14 +450,28 @@ def check_compress128(members):
                   torch.tensor(n, dtype=torch.int32), torch.tensor(cur0, dtype=torch.int32))
     dev, want, big_plain_ms = run("window, chunks of 3 x 4 MiB blocks", frame_rows)
     big_ms = cuda_ms(lambda: c128.compress128(*dev))
-    report["at_frame_rows"] = dict(
+    label = (f"{len(base)} chunks of " + " + ".join(f"{len(b) / (1 << 20):.2f}" for b in big)
+             + " MiB blocks, in-block windows")
+    report["at_frame_rows"] = {label: dict(
         ms=big_ms, plain_ms=big_plain_ms,
-        bound_ms=moved(frame_rows, want) / HBM_BYTES_PER_S * 1e3,
-        shape=f"{len(base)} chunks of " + " + ".join(f"{len(b) / (1 << 20):.2f}" for b in big)
-              + " MiB blocks, in-block windows")
-    print(f"  compress128 at the frame path's rows ({report['at_frame_rows']['shape']}): "
-          f"{big_ms:.3f} ms on the card, plain {big_plain_ms:.1f} ms, bound "
-          f"{report['at_frame_rows']['bound_ms']:.4f} ms")
+        bound_ms=moved(frame_rows, want) / HBM_BYTES_PER_S * 1e3)}
+    print(f"  compress128 at the frame path's rows ({label}): {big_ms:.3f} ms on the card, plain "
+          f"{big_plain_ms:.1f} ms, bound {report['at_frame_rows'][label]['bound_ms']:.4f} ms")
+
+    # one linked frame's launch (5c): the 32 chunks of a 1 MiB segment, each
+    # behind the 64 KiB before it
+    seg = cut_blocks(members[names[1]], 1 << 20, 3)[1]
+    chunks = [seg[i : i + c128.MAX_B] for i in range(0, len(seg), c128.MAX_B)]
+    windows = [seg[max(i - w, 0) : i] for i in range(0, len(seg), c128.MAX_B)]
+    linked_rows = tensors_of(chunks, windows)
+    dev, want, linked_plain_ms = run("window, the 32 chunks of a linked 1 MiB segment", linked_rows)
+    linked_ms = cuda_ms(lambda: c128.compress128(*dev))
+    label = f"{len(chunks)} rows of [64 KiB window | 32 KiB] (a linked 1 MiB segment)"
+    report["at_frame_rows"][label] = dict(
+        ms=linked_ms, plain_ms=linked_plain_ms,
+        bound_ms=moved(linked_rows, want) / HBM_BYTES_PER_S * 1e3)
+    print(f"  compress128 on {label}: {linked_ms:.3f} ms on the card, plain {linked_plain_ms:.1f} ms, "
+          f"bound {report['at_frame_rows'][label]['bound_ms']:.4f} ms")
     return report
 
 
@@ -549,18 +567,23 @@ def decoder_edge_streams():
     return blocks, prefixes
 
 
-def decoder_window_streams(r: random.Random, count: int = 24):
+def decoder_window_streams(r: random.Random, count: int = 24, out_limit: int = 0):
     """Seeded streams of about 300 KiB whose sequences carry length runs,
     long literal runs and long matches all along, so that the ends of the
     decoder's moving window fall inside tokens' length runs, literals and
     offsets at many phases, and sequences longer than 8 KiB sit among short
-    ones.  Returns (blocks, the largest output size)."""
+    ones.  With ``out_limit`` (decode128's 64 KiB blocks): literal-heavy
+    streams whose output stays under it, so the stream is several of
+    decode128's windows long, with sequences longer than its batches.
+    Returns (blocks, the largest output size)."""
+    lits = (0, 1, 14, 15, 16, 40, 269, 270, 300, 700, 1200) + ((4500,) if out_limit else ())
+    mls = (4, 5, 18, 19, 20, 273, 274, 300) + ((600, 5000) if out_limit else (2000, 9000))
     blocks, largest = [], 0
     for _ in range(count):
         out, size = bytearray(seq(r.randbytes(64), 64, 8)), 72
-        while len(out) < 300_000:
-            lit = r.choice((0, 1, 14, 15, 16, 40, 269, 270, 300, 700, 1200))
-            ml = r.choice((4, 5, 18, 19, 20, 273, 274, 300, 2000, 9000))
+        while len(out) < 300_000 and (not out_limit or size + 9600 < out_limit):
+            lit = r.choice(lits)
+            ml = r.choice(mls)
             size += lit
             out += seq(r.randbytes(lit), r.randrange(1, min(size, 65535) + 1), ml)
             size += ml
@@ -664,6 +687,18 @@ def check_decoders(members):
     print(f"  {len(eargs[1])} edge streams (statuses {kinds}) on all four, {len(blocks)} streams of "
           f"{len(blocks[0]):,d} B with length runs and long sequences all along on v4, big and "
           f"v3: equal to plain")
+    blocks, largest = decoder_window_streams(random.Random(0x3E4E), 32, 65536)
+    wargs = tensors(blocks, [b""] * len(blocks))
+    want, _ = plain(wargs, 65536)
+    if int((want[2] != 0).sum()) or largest > 65536:
+        fail("decoders: a 64 KiB window stream is not valid")
+    for name, fn in decoders.items():
+        got = fn(*(a.cuda() for a in wargs), 65536)
+        torch.cuda.synchronize()
+        report[name]["err"] = max(report[name]["err"],
+                                  same(f"{name}[64 KiB window streams]", got, want))
+    print(f"  {len(blocks)} literal-heavy streams of {min(map(len, blocks)):,d}-"
+          f"{max(map(len, blocks)):,d} B into at most 64 KiB, on all four: equal to plain")
 
     # seeded mutations of compressed blocks, half behind a prefix they may
     # reach into: 3,000 of small blocks and 600 random strings (limit 8 KiB),
@@ -704,8 +739,35 @@ def check_decoders(members):
     for name in ("decode128", "decode_v3"):
         report[name].update(ms=at_128[name], plain_ms=plain_ms,
                             bound_ms=moved / HBM_BYTES_PER_S * 1e3, shape=shape)
+    report["decode128"]["decode_big_ms"] = at_128["decode_big"]
     print(f"  at decode128's shape ({shape}): "
           + ", ".join(f"{name} {ms:.3f} ms" for name, ms in at_128.items()))
+    # one block alone behind a 64 KiB prefix: what a wave of a linked frame
+    # of 64 KiB blocks waits for (5d), on decode128 and decode_big
+    ((one_comp, one_prefix),) = behind_prefix([cut_blocks(members[names[7]], 2 * 65536, 3)[1]])
+    oargs = tensors([one_comp], [one_prefix])
+    want, _ = plain(oargs, 65536)
+    if int(want[2][0]) or int(want[1][0]) != 65536:
+        fail("decoders: the block behind a prefix does not decode")
+    dev = [a.cuda() for a in oargs]
+    moved = len(one_comp) + 65536 + len(one_prefix)
+    label = "one 64 KiB block behind a 64 KiB prefix"
+    pair = ("decode128", "decode_big")
+    for name in pair:
+        report[name]["err"] = max(report[name]["err"],
+                                  same(f"{name}[{label}]", decoders[name](*dev, 65536), want))
+    # both run the same walk, so they are timed in turns, each first as often
+    turns = {name: [] for name in pair}
+    for order in (pair, pair[::-1]) * 2:
+        for name in order:
+            turns[name].append(cuda_ms(lambda fn=decoders[name]: fn(*dev, 65536)))
+    at_one = {name: sorted(t)[len(t) // 2] for name, t in turns.items()}
+    report["decode128"]["at_frame_rows"] = {label: dict(
+        ms=at_one["decode128"], bound_ms=moved / HBM_BYTES_PER_S * 1e3, n=len(one_comp),
+        out=65536, decode_big_ms=at_one["decode_big"])}
+    print(f"  {label} of {names[7]} ({len(one_comp):,d} B in): "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in at_one.items())
+          + f", bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
 
     # big blocks, beyond the TPU kernels' windows: 256 KiB, 1 MiB and 4 MiB,
     # without a prefix, behind a 64 KiB prefix, and with that prefix cut to

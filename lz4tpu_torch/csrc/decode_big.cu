@@ -70,7 +70,6 @@ namespace {
 
 constexpr int COPIERS = 256;           // warps 1-8
 constexpr int COPY_WARPS = COPIERS / 32;
-constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int THREADS = 32 + COPIERS;  // warp 0 parses ahead
 constexpr int RING = 1 << 17;          // output ring, bytes (power of two)
 constexpr int RMASK = RING - 1;
@@ -78,7 +77,7 @@ constexpr int CWIN = 1 << 16;          // compressed-stream window, bytes
 constexpr int FLUSH_AT = 1 << 14;      // flush when this much is unflushed
 constexpr int PIECE = 1 << 14;         // long sequences move in such pieces
 constexpr int SMALL = 1 << 13;         // longer sequences take the piece path
-constexpr int BATCH = 32;              // sequences parsed ahead per barrier: one a lane
+constexpr int BATCH = lz4t::BATCH;     // sequences parsed ahead per barrier: one a lane
 constexpr int BATCH_BYTES = 1 << 13;   // a batch ends once it holds this much output
 constexpr int REFILL_MARGIN = 3 << 13; // window left for the batch being parsed
 constexpr int MAX_DISTANCE = 1 << 16;  // offsets are u16
@@ -98,56 +97,21 @@ static_assert(REFILL_MARGIN >= BATCH_BYTES + SMALL + SEQ_OVERHEAD * BATCH,
 static_assert(2 * (BATCH_BYTES + SMALL) + REFILL_MARGIN + 2 * SEQ_OVERHEAD * BATCH <= CWIN,
               "window too small");
 
-struct Entry {
-    int op, lit_src, lit_len, match_len, offset;
-};
+using lz4t::Batch;
+using lz4t::Entry;
+using lz4t::FLAG_LAST;
+using lz4t::FLAG_LONG;
+using lz4t::Window;
 
-constexpr int FLAG_LAST = 1;  // the stream ends with this batch
-constexpr int FLAG_LONG = 2;  // one sequence longer than SMALL, alone
-
-struct Batch {
-    int count;           // sequences in e[]
-    int next_pos;        // compressed position after them
-    int end_op;          // output position after them
-    int status;          // not OK: the sequence after them failed, decoding ends
-    int flags;
-    unsigned dependent;  // bit k: e[k]'s match reads what e[0..k) write
-    Entry e[BATCH];
-};
-
-// the compressed stream: bytes [base, end) staged in shared memory, the
-// rest read from device memory.  The window only moves forward and never
-// past the oldest byte still to be read (the literals of the batch being
-// copied), so no read is below `base` and one comparison decides.
-struct Window {
-    const uint8_t* c;  // the staged bytes, indexed by stream position
-    const uint8_t* g;
-    int base, end;
-    __device__ __forceinline__ int operator()(long long p) const {
-        const int i = (int)p;
-        return i < end ? c[i] : g[i];
-    }
-};
-
-// stage comp[from .. from + want) into the window, all threads; the window
-// starts at the 16-byte boundary of device memory at or below `from`
 __device__ __forceinline__ void load_window(Window& w, uint8_t* win, int n, int from, int tid,
                                             int want = CWIN - 32) {
-    const int skew = (int)((uintptr_t)(w.g + from) & 15);
-    const int base = from - skew;  // may be as low as -15
-    const int end = min(from + want, n);
-    for (int p = base + 16 * tid; p < end; p += 16 * THREADS) {
-        uint8_t* d = win + (p - base);
-        if (p >= 0 && p + 16 <= n) {
-            *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(w.g + p);
-        } else {  // the row's first and last bytes
-            for (int i = 0; i < 16; i++)
-                if (p + i >= 0 && p + i < n) d[i] = w.g[p + i];
-        }
-    }
-    w.c = win - base;
-    w.base = base;
-    w.end = end;
+    lz4t::load_window<THREADS>(w, win, n, from, tid, want);
+}
+
+__device__ __forceinline__ void parse_batch(Batch& bt, const Window& w, int n, int pos, int op,
+                                            int plen, long long limit, long long out_cap,
+                                            int lane) {
+    lz4t::parse_batch<BATCH_BYTES, SMALL>(bt, w, n, pos, op, plen, limit, out_cap, lane);
 }
 
 // ring[fl .. end) -> device memory with 16-byte stores; fl and end are
@@ -156,164 +120,6 @@ __device__ __forceinline__ int flush(const uint8_t* ring, uint8_t* o, int fl, in
     for (int p = fl + 16 * tid; p < end; p += 16 * THREADS)
         *reinterpret_cast<uint4*>(o + p) = *reinterpret_cast<const uint4*>(ring + (p & RMASK));
     return end;
-}
-
-// Lane 0 of warp 0: the batch of one sequence that the walk cannot take,
-// from (pos, op), through the shared parser.  A batch with no sequence has
-// FLAG_LAST or a failing status.
-__device__ void parse_single(Batch& bt, const Window& w, int n, int pos, int op, int plen,
-                             long long limit, long long out_cap) {
-    int count = 0, flags = 0, status = lz4t::OK;
-    if (pos >= n) {
-        flags = FLAG_LAST;
-    } else {
-        const lz4t::Seq s = lz4t::parse_seq_with(w, n, pos, op, plen, limit, out_cap);
-        if (s.status != lz4t::OK) {
-            status = s.status;
-        } else {
-            const int len = (int)(s.lit_len + s.match_len);
-            if (len > SMALL) flags |= FLAG_LONG;
-            bt.e[count++] =
-                Entry{op, (int)s.lit_src, (int)s.lit_len, (int)s.match_len, (int)s.offset};
-            pos = (int)s.next_pos;
-            op += len;
-            if (pos >= n) flags |= FLAG_LAST;
-        }
-    }
-    bt.count = count;
-    bt.next_pos = pos;
-    bt.end_op = op;
-    bt.status = status;
-    bt.flags = flags;
-    bt.dependent = 0;
-}
-
-// Warp 0: parse the next batch, from (pos, op).
-__device__ void parse_batch(Batch& bt, const Window& w, int n, int pos, int op, int plen,
-                            long long limit, long long out_cap, int lane) {
-    const int start_op = op, start_pos = pos;
-    // The walk, the same in every lane: sequences that lie whole inside the
-    // window with their offset (so the stream does not end inside them) and
-    // are at most SMALL long.  Lane k keeps sequence k.
-    const uint8_t* c = w.c;
-    const int lim = w.end;
-    int count = 0, bytes = 0;
-    int my_src = 0, my_lit = 0, my_ml = 0;
-    for (;;) {
-        // the common sequence, both lengths in the token and all of it well
-        // inside the window: the chain from one token to the next is this
-        // load, a shift and an add, and one test decides whether it goes on
-        while (count < BATCH && bytes < BATCH_BYTES && pos + 18 <= lim) {
-            const int token = c[pos];
-            const int lit = token >> 4, ml = (token & 0xF) + 4;
-            if (lit == 0xF || ml == 0xF + 4) break;
-            if (count == lane) {
-                my_src = pos + 1;
-                my_lit = lit;
-                my_ml = ml;
-            }
-            count++;
-            bytes += lit + ml;
-            pos += lit + 3;
-        }
-        if (count >= BATCH || bytes >= BATCH_BYTES || pos >= lim) break;
-        // any other sequence: length runs, or the window's end close by
-        const int token = c[pos];
-        int q = pos + 1;
-        int lit = token >> 4;
-        bool whole = true;
-        if (lit == 0xF) {
-            int more;
-            do {
-                if (q >= lim) {
-                    whole = false;
-                    break;
-                }
-                more = c[q++];
-                lit += more;
-            } while (more == 0xFF);
-        }
-        const int src = q;
-        q += lit;
-        if (!whole || q + 2 > lim) break;
-        q += 2;
-        int ml = token & 0xF;
-        if (ml == 0xF) {
-            int more;
-            do {
-                if (q >= lim) {
-                    whole = false;
-                    break;
-                }
-                more = c[q++];
-                ml += more;
-            } while (more == 0xFF);
-        }
-        ml += 4;
-        if (!whole || lit + ml > SMALL) break;
-        if (count == lane) {
-            my_src = src;
-            my_lit = lit;
-            my_ml = ml;
-        }
-        count++;
-        bytes += lit + ml;
-        pos = q;
-    }
-    if (count == 0) {
-        if (lane == 0) parse_single(bt, w, n, start_pos, start_op, plen, limit, out_cap);
-        __syncwarp();
-        return;
-    }
-    // Off the chain, lane k for sequence k: output position by a prefix sum,
-    // offset, the checks of parse_seq_with in their order.
-    const bool mine = lane < count;
-    const int len = mine ? my_lit + my_ml : 0;
-    int upto = len;
-    for (int d = 1; d < 32; d <<= 1) {
-        const int below = __shfl_up_sync(FULL, upto, d);
-        if (lane >= d) upto += below;
-    }
-    const int my_op = start_op + upto - len;
-    const long long mop = (long long)my_op + my_lit;
-    int offset = 0, st = lz4t::OK;
-    if (mine) {
-        const int at = my_src + my_lit;
-        offset = c[at] | (c[at + 1] << 8);
-        st = mop > out_cap || mop + my_ml > limit ? lz4t::ERR_MEMORY_LIMIT
-             : offset == 0                        ? lz4t::ERR_ZERO_OFFSET
-             : offset > mop + plen                ? lz4t::ERR_INVALID_OFFSET
-                                                  : lz4t::OK;
-    }
-    // the first failing sequence ends the batch before it
-    const unsigned bad = __ballot_sync(FULL, st != lz4t::OK);
-    int status = lz4t::OK;
-    int end_op = start_op + __shfl_sync(FULL, upto, 31);
-    if (bad) {
-        const int first = __ffs(bad) - 1;
-        status = __shfl_sync(FULL, st, first);
-        end_op = __shfl_sync(FULL, my_op, first);
-        count = first;
-    }
-    // a match that reads what an earlier sequence of this batch writes waits
-    // for it; its own literals it reads from the window
-    bool waits = false;
-    if (lane < count) {
-        const int from = (int)mop - offset;
-        const int upper = min(from + min(my_ml, offset), my_op);
-        waits = from < my_op && upper > start_op;
-        bt.e[lane] = Entry{my_op, my_src, my_lit, my_ml, offset};
-    }
-    const unsigned dependent = __ballot_sync(FULL, waits);
-    if (lane == 0) {
-        bt.count = count;
-        bt.next_pos = pos;
-        bt.end_op = end_op;
-        bt.status = status;
-        bt.flags = status == lz4t::OK && pos >= n ? FLAG_LAST : 0;
-        bt.dependent = dependent;
-    }
-    __syncwarp();
 }
 
 __global__ void __launch_bounds__(THREADS, 1)

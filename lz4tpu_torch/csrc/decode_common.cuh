@@ -1,8 +1,10 @@
-// Shared sequence parser and copy loops of the CUDA LZ4 block decoders
-// (decode128.cu and decode_v3.cu: one warp per block; decode_v4.cu and
-// decode_big.cu: one thread block per block).  Semantics: reference src/raw/decompress.rs:59-138, stated in
-// the port's plain version (lz4tpu_torch/kernels/decode128.py
-// decode_plain):
+// Shared sequence parser, batch walk and copy loops of the CUDA LZ4 block
+// decoders (decode_v3.cu: one warp per block; decode_v4.cu: one thread block
+// per block, serial parse; decode128.cu and decode_big.cu: one thread block
+// per block, warp 0 walking the tokens 32 sequences at a time ahead of copy
+// warps, through `parse_batch` below).  Semantics: reference
+// src/raw/decompress.rs:59-138, stated in the port's plain version
+// (lz4tpu_torch/kernels/decode128.py decode_plain):
 //
 //  * token, LSIC literal length, literals; a block may end after literals,
 //    and with exactly ONE byte left that byte is re-read as a token (the
@@ -153,6 +155,230 @@ __device__ __forceinline__ void copy_match(uint8_t* out, const uint8_t* __restri
             out[op + j] = s >= 0 ? out[s] : prefix_end[s];
         }
     }
+}
+
+// ---------------------------------------------------------------------------
+// The batch walk of decode128.cu and decode_big.cu: warp 0 parses up to 32
+// sequences ahead of the copy warps, out of a window of the compressed stream
+// staged in shared memory.
+// ---------------------------------------------------------------------------
+
+constexpr int BATCH = 32;  // sequences parsed ahead per barrier: one a lane
+constexpr unsigned FULL_MASK = 0xFFFFFFFFu;
+
+struct Entry {
+    int op, lit_src, lit_len, match_len, offset;
+};
+
+constexpr int FLAG_LAST = 1;  // the stream ends with this batch
+constexpr int FLAG_LONG = 2;  // one sequence longer than the walk takes, alone
+
+struct Batch {
+    int count;           // sequences in e[]
+    int next_pos;        // compressed position after them
+    int end_op;          // output position after them
+    int status;          // not OK: the sequence after them failed, decoding ends
+    int flags;
+    unsigned dependent;  // bit k: e[k]'s match reads what e[0..k) write
+    Entry e[BATCH];
+};
+
+// the compressed stream: bytes [base, end) staged in shared memory, the
+// rest read from device memory.  The window only moves forward and never
+// past the oldest byte still to be read (the literals of the batch being
+// copied), so no read is below `base` and one comparison decides.
+struct Window {
+    const uint8_t* c;  // the staged bytes, indexed by stream position
+    const uint8_t* g;
+    int base, end;
+    __device__ __forceinline__ int operator()(long long p) const {
+        const int i = (int)p;
+        return i < end ? c[i] : g[i];
+    }
+};
+
+// stage comp[from .. from + want) into the window, NTHREADS threads; the
+// window starts at the 16-byte boundary of device memory at or below `from`
+template <int NTHREADS>
+__device__ __forceinline__ void load_window(Window& w, uint8_t* win, int n, int from, int tid,
+                                            int want) {
+    const int skew = (int)((uintptr_t)(w.g + from) & 15);
+    const int base = from - skew;  // may be as low as -15
+    const int end = min(from + want, n);
+    for (int p = base + 16 * tid; p < end; p += 16 * NTHREADS) {
+        uint8_t* d = win + (p - base);
+        if (p >= 0 && p + 16 <= n) {
+            *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(w.g + p);
+        } else {  // the row's first and last bytes
+            for (int i = 0; i < 16; i++)
+                if (p + i >= 0 && p + i < n) d[i] = w.g[p + i];
+        }
+    }
+    w.c = win - base;
+    w.base = base;
+    w.end = end;
+}
+
+// Lane 0 of warp 0: the batch of one sequence that the walk cannot take,
+// from (pos, op), through the shared parser.  A batch with no sequence has
+// FLAG_LAST or a failing status.
+template <int SMALL>
+__device__ void parse_single(Batch& bt, const Window& w, int n, int pos, int op, int plen,
+                             long long limit, long long out_cap) {
+    int count = 0, flags = 0, status = OK;
+    if (pos >= n) {
+        flags = FLAG_LAST;
+    } else {
+        const Seq s = parse_seq_with(w, n, pos, op, plen, limit, out_cap);
+        if (s.status != OK) {
+            status = s.status;
+        } else {
+            const int len = (int)(s.lit_len + s.match_len);
+            if (len > SMALL) flags |= FLAG_LONG;
+            bt.e[count++] =
+                Entry{op, (int)s.lit_src, (int)s.lit_len, (int)s.match_len, (int)s.offset};
+            pos = (int)s.next_pos;
+            op += len;
+            if (pos >= n) flags |= FLAG_LAST;
+        }
+    }
+    bt.count = count;
+    bt.next_pos = pos;
+    bt.end_op = op;
+    bt.status = status;
+    bt.flags = flags;
+    bt.dependent = 0;
+}
+
+// Warp 0: parse the next batch, from (pos, op).  A batch ends after 32
+// sequences or once it holds BATCH_BYTES of output; a sequence longer than
+// SMALL is a batch of its own (FLAG_LONG).
+template <int BATCH_BYTES, int SMALL>
+__device__ void parse_batch(Batch& bt, const Window& w, int n, int pos, int op, int plen,
+                            long long limit, long long out_cap, int lane) {
+    const int start_op = op, start_pos = pos;
+    // The walk, the same in every lane: sequences that lie whole inside the
+    // window with their offset (so the stream does not end inside them) and
+    // are at most SMALL long.  Lane k keeps sequence k.
+    const uint8_t* c = w.c;
+    const int lim = w.end;
+    int count = 0, bytes = 0;
+    int my_src = 0, my_lit = 0, my_ml = 0;
+    for (;;) {
+        // the common sequence, both lengths in the token and all of it well
+        // inside the window: the chain from one token to the next is this
+        // load, a shift and an add, and one test decides whether it goes on
+        while (count < BATCH && bytes < BATCH_BYTES && pos + 18 <= lim) {
+            const int token = c[pos];
+            const int lit = token >> 4, ml = (token & 0xF) + 4;
+            if (lit == 0xF || ml == 0xF + 4) break;
+            if (count == lane) {
+                my_src = pos + 1;
+                my_lit = lit;
+                my_ml = ml;
+            }
+            count++;
+            bytes += lit + ml;
+            pos += lit + 3;
+        }
+        if (count >= BATCH || bytes >= BATCH_BYTES || pos >= lim) break;
+        // any other sequence: length runs, or the window's end close by
+        const int token = c[pos];
+        int q = pos + 1;
+        int lit = token >> 4;
+        bool whole = true;
+        if (lit == 0xF) {
+            int more;
+            do {
+                if (q >= lim) {
+                    whole = false;
+                    break;
+                }
+                more = c[q++];
+                lit += more;
+            } while (more == 0xFF);
+        }
+        const int src = q;
+        q += lit;
+        if (!whole || q + 2 > lim) break;
+        q += 2;
+        int ml = token & 0xF;
+        if (ml == 0xF) {
+            int more;
+            do {
+                if (q >= lim) {
+                    whole = false;
+                    break;
+                }
+                more = c[q++];
+                ml += more;
+            } while (more == 0xFF);
+        }
+        ml += 4;
+        if (!whole || lit + ml > SMALL) break;
+        if (count == lane) {
+            my_src = src;
+            my_lit = lit;
+            my_ml = ml;
+        }
+        count++;
+        bytes += lit + ml;
+        pos = q;
+    }
+    if (count == 0) {
+        if (lane == 0) parse_single<SMALL>(bt, w, n, start_pos, start_op, plen, limit, out_cap);
+        __syncwarp();
+        return;
+    }
+    // Off the chain, lane k for sequence k: output position by a prefix sum,
+    // offset, the checks of parse_seq_with in their order.
+    const bool mine = lane < count;
+    const int len = mine ? my_lit + my_ml : 0;
+    int upto = len;
+    for (int d = 1; d < 32; d <<= 1) {
+        const int below = __shfl_up_sync(FULL_MASK, upto, d);
+        if (lane >= d) upto += below;
+    }
+    const int my_op = start_op + upto - len;
+    const long long mop = (long long)my_op + my_lit;
+    int offset = 0, st = OK;
+    if (mine) {
+        const int at = my_src + my_lit;
+        offset = c[at] | (c[at + 1] << 8);
+        st = mop > out_cap || mop + my_ml > limit ? ERR_MEMORY_LIMIT
+             : offset == 0                        ? ERR_ZERO_OFFSET
+             : offset > mop + plen                ? ERR_INVALID_OFFSET
+                                                  : OK;
+    }
+    // the first failing sequence ends the batch before it
+    const unsigned bad = __ballot_sync(FULL_MASK, st != OK);
+    int status = OK;
+    int end_op = start_op + __shfl_sync(FULL_MASK, upto, 31);
+    if (bad) {
+        const int first = __ffs(bad) - 1;
+        status = __shfl_sync(FULL_MASK, st, first);
+        end_op = __shfl_sync(FULL_MASK, my_op, first);
+        count = first;
+    }
+    // a match that reads what an earlier sequence of this batch writes waits
+    // for it; its own literals it reads from the window
+    bool waits = false;
+    if (lane < count) {
+        const int from = (int)mop - offset;
+        const int upper = min(from + min(my_ml, offset), my_op);
+        waits = from < my_op && upper > start_op;
+        bt.e[lane] = Entry{my_op, my_src, my_lit, my_ml, offset};
+    }
+    const unsigned dependent = __ballot_sync(FULL_MASK, waits);
+    if (lane == 0) {
+        bt.count = count;
+        bt.next_pos = pos;
+        bt.end_op = end_op;
+        bt.status = status;
+        bt.flags = status == OK && pos >= n ? FLAG_LAST : 0;
+        bt.dependent = dependent;
+    }
+    __syncwarp();
 }
 
 }  // namespace lz4t

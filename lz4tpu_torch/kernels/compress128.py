@@ -3,31 +3,37 @@
 Counterpart of ``lz4tpu/kernels/compress128.py``.  Each row is
 ``[window | block]`` bytes of one flat source tensor: the block (at most
 ``MAX_B`` = 32 KiB) is parsed from ``cur0``, behind a window of at most
-64 KiB that matches may reach into.  One warp compresses one row
-(``csrc/compress128.cu``): the row's packed table ``pos17 | tag15 << 17``
-lives in shared memory, lane 0 searches, the warp copies the literals.
-Any number of rows goes into one launch (the TPU's 128 is its vector
-width, not part of the contract).
+64 KiB that matches may reach into.  One thread block compresses one row
+(``csrc/compress128.cu``).  Any number of rows goes into one launch (the
+TPU's 128 is its vector width, not part of the contract).
 
 Three modes, each with its plain version here:
 
-* default — ``PROBES`` positions a round, spaced by the skip schedule
-  (``miss >> SKIP_TRIGGER``), every probed position inserted, the earliest
-  tag hit verified by the forward compare (under 4 equal bytes is a false
-  hit, resumed one byte on), forward extension to ``n - 5``, backward
-  extension into the pending literals as far as the bytes match.  The
-  output is valid LZ4 of about the greedy parse's size, not its bytes, and
-  not ``lz4tpu``'s bytes either (its backward extension stops at its input
-  pages);
-* window — ``cur0 > 0``: the table is primed from the window as
-  ``prime_tables_packed`` does (in the kernel, on the device), candidates
-  may lie in the window, offsets are capped at 0xFFFF;
+* default — a parse defined so that most of it runs in parallel: every
+  position's candidates are found before the walk, off its chain
+  (``lane_records_plain``: the latest positions of the position's bucket,
+  ``WAYS`` of them before its group of ``GROUP`` positions and one inside
+  it, compared forward to ``CAP`` bytes), then one walk takes the first
+  position with a record of 4 bytes or more (the best of ``LAZY`` from
+  there), extends the match forward to ``n - 5`` and backward into the
+  pending literals as far as the bytes match, and jumps to its end
+  (``lane_parse_plain``).  In the kernel, eight warps find the candidates
+  of the next ``TILE`` positions and emit the sequences the walk found in
+  the tile before while one warp walks.  The output is valid LZ4 no
+  larger than the greedy parse's on real data, not its bytes, and not
+  ``lz4tpu``'s bytes either (its lane kernel probes serially);
+* window — ``cur0 > 0``: every window position goes into the table first
+  (in the kernel, on the device), candidates may lie in the window,
+  offsets are capped at 0xFFFF;
 * STRICT — byte parity with the reference greedy parse (the scalar
   compressor, ``kernels/compress.py``) for rows without a window at
   ``hashlog`` 12: the 5-byte hash picks the bucket, an empty slot reads as
   position 0, the skip schedule, the unbounded backward extension and the
   ``cursor - 2`` re-insert are the reference's; the 15-bit tag only saves
-  the byte compare where it cannot succeed.
+  the byte compare where it cannot succeed.  One lane of one warp searches.
+
+``prime_tables_packed`` is the JAX package's window priming (every 3rd
+position, one way), kept as the port's equal of ``lz4tpu``'s lane tables.
 
 Tensor contract of ``compress128`` (kernel and plain version alike):
 
@@ -50,7 +56,7 @@ import torch
 
 from .. import build
 from ..runtime import KernelStats, resolve_device, round_up, stream_handle
-from ..spec.block import SKIP_TRIGGER, WINDOW_SIZE, compress_bound
+from ..spec.block import WINDOW_SIZE, compress_bound
 from ..spec.table import U32_SLOTS
 from ..state import LANE_SENTINEL
 from .compress import _lcp, _lsic, parse_plain
@@ -61,16 +67,18 @@ KERNEL = KernelStats("compress128")
 SOURCE = "lz4tpu_torch/csrc/compress128.cu"
 REPLACES = "lz4tpu/kernels/compress128.py:156"
 
-HASHLOG = 12  # table size: 1 << HASHLOG packed entries a row (16 KiB)
+HASHLOG = 12  # buckets: 1 << HASHLOG a row (the kernel's table: 64 KiB of ways)
 MIN_HASHLOG = 4
-PROBES = 4  # positions probed a round
-PROBE_SPAN = 24  # a round's probes stay within this many bytes of its first
+TILE = 256  # positions whose records the walk sees at once (csrc/compress128.cu)
+GROUP = 32  # positions of a group of the candidate pass: a warp's
+WAYS = 4  # candidates a bucket keeps: its latest positions
+CAP = 32  # bytes the candidate pass compares; the walk extends a match past it
+LAZY = 4  # positions from the first hit on among which the walk picks a match
+BACK_SEEN = 7  # equal bytes before a position a record of the kernel carries
 MAX_B = 32 << 10  # block bytes a row may hold: 17-bit positions cover 96 KiB
 HASH_MUL = 2654435761
 SENTINEL = LANE_SENTINEL  # empty slot: a position no row reaches, tag 0
-MISS0 = 1 << SKIP_TRIGGER
 
-_POS_MASK = 0x1FFFF
 _TAG_MASK = 0x7FFF
 
 
@@ -146,13 +154,18 @@ def _compress128_cuda(src, base, n, cur0, hashlog, strict, out_capacity):
 # ---------------------------------------------------------------------------
 
 
-def _hash_words(row: bytes, hashlog: int):
-    """Bucket and tag of the 4-byte word at every position that has one."""
+def _hash_vm(row: bytes):
+    """The 4-byte word at every position that has one, times HASH_MUL."""
     buf = np.frombuffer(row, np.uint8).astype(np.uint32)
     if len(buf) < 4:
-        return np.zeros(0, np.uint32), np.zeros(0, np.uint32)
+        return np.zeros(0, np.uint32)
     v = buf[:-3] | (buf[1:-2] << 8) | (buf[2:-1] << 16) | (buf[3:] << 24)
-    vm = v * np.uint32(HASH_MUL)  # wraps to 32 bits
+    return v * np.uint32(HASH_MUL)  # wraps to 32 bits
+
+
+def _hash_words(row: bytes, hashlog: int):
+    """Bucket and tag of the 4-byte word at every position that has one."""
+    vm = _hash_vm(row)
     return vm >> np.uint32(32 - hashlog), (vm >> np.uint32(6)) & np.uint32(_TAG_MASK)
 
 
@@ -185,47 +198,207 @@ def _emit(out: bytearray, row: bytes, anchor: int, mstart: int, offset: int, mle
     _lsic(out, extra)
 
 
+def lane_records_plain(row: bytes, cur0: int = 0, hashlog: int = HASHLOG):
+    """The candidate pass of default and window mode, for every block
+    position p that may start a match (``cur0 <= p <= n - 12``).
+
+    The row is cut into groups of ``GROUP`` positions in row coordinates,
+    and every position with a 4-byte word is inserted, window and block
+    alike.  p's candidates are the latest position before p inside p's
+    group whose word lands in p's bucket, and the ``WAYS`` latest such
+    positions before p's group.  Each candidate r with ``p - r <= 0xFFFF``
+    is compared with p forward, to at most ``CAP`` bytes and to ``n - 5``;
+    the record is the longest compare, the first in that order on a tie,
+    kept if it reaches 4 bytes.  Returns (length, offset) arrays indexed by
+    ``p - cur0``, length 0 where there is no record."""
+    n = len(row)
+    lo, hi = cur0, n - 11
+    if hi <= lo:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    bucket = _hash_words(row, hashlog)[0].astype(np.int64)
+    pos = np.arange(lo, hi, dtype=np.int64)
+    # the positions sorted by (bucket, position): p's latest same-bucket
+    # predecessor is the entry before p's, and the latest before p's group
+    # the entry before the run of p's (bucket, group)
+    order = np.argsort(bucket.astype(np.uint16), kind="stable")  # a radix sort
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    sb, sg = bucket[order], order // GROUP
+    boundary = np.ones(len(order), bool)
+    boundary[1:] = (sb[1:] != sb[:-1]) | (sg[1:] != sg[:-1])
+    run_start = np.maximum.accumulate(np.where(boundary, np.arange(len(order)), 0))
+    j = rank[pos]
+    newest = run_start[j] - 1
+    before = j - 1
+    # 8 bytes from every position (zeros past the row), compared a word at
+    # a time; a compare stops at its first differing byte
+    pad = np.frombuffer(row + bytes(CAP + 8), np.uint8).astype(np.uint64)
+    words = np.zeros(n + CAP, np.uint64)
+    for i in range(8):
+        words |= pad[i : i + n + CAP] << np.uint64(8 * i)
+    # every candidate at once: the in-group predecessor first, then the ways
+    # from the newest (the first of the longest compares wins)
+    at = np.stack([np.where(before > newest, before, -1)] + [newest - w for w in range(WAYS)])
+    cand = order[np.maximum(at, 0)]
+    ok = (at >= 0) & (bucket[cand] == bucket[pos]) & (pos - cand <= 0xFFFF)
+    pair = np.flatnonzero(ok)
+    mine, theirs = np.broadcast_to(pos, at.shape).ravel()[pair], cand.ravel()[pair]
+    got = np.full(len(pair), CAP, np.int64)
+    going = np.arange(len(pair))  # compares not yet stopped
+    for k in range(0, CAP, 8):
+        x = words[mine[going] + k] ^ words[theirs[going] + k]
+        stop = x != 0
+        low = x[stop] & (~x[stop] + np.uint64(1))  # the lowest differing bit
+        got[going[stop]] = k + (np.log2(low.astype(np.float64)).astype(np.int64) >> 3)
+        going = going[~stop]
+    lengths = np.zeros(at.shape, np.int64)
+    lengths.ravel()[pair] = np.minimum(got, np.minimum(CAP, n - 5 - mine))
+    best = np.argmax(lengths, axis=0)
+    length = lengths[best, np.arange(len(pos))]
+    offset = pos - cand[best, np.arange(len(pos))]
+    offset[length < 4] = 0
+    length[length < 4] = 0
+    return length, offset
+
+
 def lane_parse_plain(row: bytes, cur0: int = 0, hashlog: int = HASHLOG):
-    """One row's default/window-mode parse, the kernel's steps in Python.
+    """One row's default/window-mode parse, the kernel's steps in Python:
+    the candidate pass (``lane_records_plain``), then the walk.  The first
+    position q at or after the cursor with a record opens the next match;
+    of q and the ``LAZY - 1`` positions after it inside q's tile, the one
+    whose record is longest less its distance from q is taken (the first
+    such).  The match is extended forward past ``CAP`` to ``n - 5`` and
+    backward into the pending literals (to the anchor and the row's first
+    byte), and the cursor jumps to its end.  Returns (stream, tail_pos,
+    tail_lit)."""
+    n = len(row)
+    length, offset = lane_records_plain(row, cur0, hashlog)
+    # the first position with a record at or after each position
+    at = np.where(length > 0, np.arange(len(length)), len(length))
+    first_hit = (np.minimum.accumulate(at[::-1])[::-1] + cur0).tolist()
+    length, offset = length.tolist(), offset.tolist()
+    out = bytearray()
+    anchor = cur0
+    while anchor - cur0 < len(length):
+        first = first_hit[anchor - cur0]
+        if first - cur0 == len(length):
+            break
+        q, best = first, -1
+        for p in range(first, min(first + LAZY, (first // TILE + 1) * TILE, n - 11)):
+            if length[p - cur0] and length[p - cur0] - (p - first) > best:
+                q, best = p, length[p - cur0] - (p - first)
+        mlen, off = length[q - cur0], offset[q - cur0]
+        c = q - off
+        if mlen == CAP:
+            mlen = _lcp(row, q, n - 5, c, n)
+        bt = 0
+        max_bt = min(q - anchor, c)
+        while bt < max_bt and row[q - bt - 1] == row[c - bt - 1]:
+            bt += 1
+        _emit(out, row, anchor, q - bt, off, mlen + bt)
+        anchor = q + mlen
+    tail_pos = len(out)
+    lit = n - anchor
+    out.append(min(lit, 0xF) << 4)
+    _lsic(out, lit)
+    out += row[anchor:]
+    return bytes(out), tail_pos, lit
+
+
+def lane_parse_tiled_plain(row: bytes, cur0: int = 0, hashlog: int = HASHLOG):
+    """A model of ``csrc/compress128.cu``'s steps in default and window
+    mode, for the tests (``lane_parse_plain`` is the specification): the
+    window primed in ``WAYS`` rounds (round w takes the latest position below
+    way w - 1's), then tile by tile the groups' in-group ranks and
+    predecessors, their turns at the ways, the records of the tile (back
+    bytes << 24 | length << 16 | offset) and the walk's jumps, and the walk
+    from jump to jump with its cursor kept across tiles.
     Returns (stream, tail_pos, tail_lit)."""
     n = len(row)
-    bucket, tag = (a.tolist() for a in _hash_words(row, hashlog))
-    tab = prime_tables_packed([row[:cur0]], hashlog)[0].numpy().view(np.uint32).tolist()
+    buf = np.frombuffer(row, np.uint8)
+    vm = _hash_vm(row)
+    bucket = (vm >> np.uint32(32 - hashlog)).astype(np.int64)
+    tag = ((vm >> np.uint32(6)) & np.uint32(_TAG_MASK)).astype(np.int64)
+    ways = np.zeros((1 << hashlog, WAYS), np.int64)  # position + 1, 0 empty
+    t0 = cur0 // TILE * TILE
+    window = np.arange(min(t0, n - 3))
+    for w in range(WAYS):
+        above = ways[bucket[window], w - 1] if w else np.full(len(window), n + 1)
+        take = window[window < above - 1] if w else window
+        np.maximum.at(ways[:, w], bucket[take], take + 1)
+
+    def compare(p, c, span):
+        m = 0
+        while m < span and buf[p + m] == buf[c + m]:
+            m += 1
+        return m
+
+    def records(ts):
+        rec = [0] * TILE
+        for g in range(TILE // GROUP):
+            base = ts + g * GROUP
+            lanes = [p for p in range(base, base + GROUP) if p + 4 <= n]
+            old = {p: ways[bucket[p]].copy() for p in lanes}
+            for p in lanes:  # this group's turn: the newest WAYS, then the old shifted
+                same = [q for q in lanes if bucket[q] == bucket[p]]
+                if p == same[-1]:
+                    newest = same[::-1][:WAYS]
+                    ways[bucket[p]] = ([q + 1 for q in newest] + list(old[p]))[:WAYS]
+            for p in lanes:
+                if not (p >= cur0 and p + 12 <= n):
+                    continue
+                span = min(CAP, n - 5 - p)
+                below = [q for q in lanes if q < p and bucket[q] == bucket[p]]
+                cands = below[-1:] + [int(e) - 1 for e in old[p]
+                                      if e and tag[int(e) - 1] == tag[p] and p - (e - 1) <= 0xFFFF]
+                best = best_off = 0
+                for c in cands:
+                    got = compare(p, c, span)
+                    if got > best:
+                        best, best_off = got, p - c
+                if best >= 4:  # and the equal bytes before, up to BACK_SEEN
+                    c = p - best_off
+                    back = 0
+                    while back < BACK_SEEN and back < c and buf[p - 1 - back] == buf[c - 1 - back]:
+                        back += 1
+                    rec[p - ts] = (back << 24) | (best << 16) | best_off
+        return rec
+
     out = bytearray()
     anchor = cur = cur0
-    miss = MISS0
-    while cur + 12 <= n:
-        # one round: up to PROBES positions, all inserted, earliest hit wins
-        q = cur
-        nvalid = 0
-        hit_q = hit_c = -1
-        for j in range(PROBES):
-            if j and (q + 12 > n or q - cur > PROBE_SPAN):
+    tiles = max(1, -(-(n - t0) // TILE))
+    for k in range(tiles):
+        ts = t0 + k * TILE
+        rec = records(ts)
+        lim = min(ts + TILE, n - 11)
+        # the jumps: from a record, the lazy step to the one taken; from any
+        # position, the first record at or after it
+        pick = {}
+        for i in range(TILE):
+            if rec[i]:
+                steps = [((rec[i + d] >> 16) & 0xFF) - d if i + d < TILE and rec[i + d] else -1
+                         for d in range(LAZY)]
+                pick[i] = steps.index(max(steps))
+        jump, nxt = [TILE] * TILE, TILE
+        for i in reversed(range(TILE)):
+            nxt = i if rec[i] else nxt
+            jump[i] = nxt + pick[nxt] if nxt < TILE else TILE
+        while cur < lim:
+            q = ts + jump[cur - ts]
+            if q >= lim:
+                cur = lim
                 break
-            nvalid += 1
-            h, t = bucket[q], tag[q]
-            cand = tab[h]
-            tab[h] = q | (t << 17)
-            cpos = cand & _POS_MASK
-            if hit_q < 0 and cpos < q and q - cpos <= 0xFFFF and cand >> 17 == t:
-                hit_q, hit_c = q, cpos
-            q += (miss + j) >> SKIP_TRIGGER
-        if hit_q < 0:
-            cur = q  # the first position not probed
-            miss += nvalid
-            continue
-        mlen = _lcp(row, hit_q, n - 5, hit_c, n)
-        if mlen < 4:  # a tag that lied, or a match too short
-            cur = hit_q + 1
-            miss += 1
-            continue
-        bt = 0
-        max_bt = min(hit_q - anchor, hit_c)
-        while bt < max_bt and row[hit_q - bt - 1] == row[hit_c - bt - 1]:
-            bt += 1
-        _emit(out, row, anchor, hit_q - bt, hit_q - hit_c, mlen + bt)
-        anchor = cur = hit_q + mlen
-        miss = MISS0
+            m, off = (rec[q - ts] >> 16) & 0xFF, rec[q - ts] & 0xFFFF
+            c = q - off
+            if m == CAP:
+                m += compare(q + CAP, c + CAP, n - 5 - q - CAP)
+            max_bt = min(q - anchor, c)
+            bt = min(rec[q - ts] >> 24, max_bt)
+            if bt == BACK_SEEN:
+                while bt < max_bt and buf[q - bt - 1] == buf[c - bt - 1]:
+                    bt += 1
+            _emit(out, row, anchor, q - bt, off, m + bt)
+            anchor = cur = q + m
     tail_pos = len(out)
     lit = n - anchor
     out.append(min(lit, 0xF) << 4)

@@ -1,10 +1,13 @@
-"""Batched decoder for blocks of at most 64 KiB: the CUDA kernel (one warp
-per block), its plain version, and the bytes-level batch API.
+"""Batched decoder for blocks of at most 64 KiB: the CUDA kernel (one
+thread block per block, the block assembled in shared memory behind a
+warp-parallel token walk), its plain version, and the bytes-level batch
+API.  ``decodebig.decode128_batched_plain`` is a model of the kernel's
+steps that the tests hold equal to the plain version.
 
 Counterpart of ``lz4tpu/kernels/decode128.py``.  The TPU kernel's lane
-layout, lockstep rounds and round cap have no counterpart: a CUDA warp
-addresses memory directly and decodes its block to the end, so there is
-no ``STATUS_FALLBACK``.
+layout, lockstep rounds and round cap have no counterpart: a CUDA thread
+block decodes its LZ4 block to the end, so there is no
+``STATUS_FALLBACK``.
 
 Tensor contract of ``decode128`` (shared with ``decompress_v4.decode_v4``):
 
@@ -17,6 +20,9 @@ Tensor contract of ``decode128`` (shared with ``decompress_v4.decode_v4``):
   ``out_len`` and ``status`` (N,) int32 — ``OK`` or an error kind of
   ``kernels/status.py``; the first failing check of a block wins and
   ``out_len`` is then the output written before the failing sequence.
+
+``decode128`` also takes ``out_capacity`` only as a multiple of 16: the
+kernel stores its staged output in aligned 16-byte vectors.
 """
 
 from __future__ import annotations
@@ -80,6 +86,7 @@ def decode128(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None)
     if out_capacity is None:
         out_capacity = round_up(limit + comp.shape[1], 16)
     check_decode_args("decode128", comp, comp_len, prefix, prefix_len, limit, out_capacity)
+    check_staged_capacity("decode128", out_capacity)
     if comp.is_cuda:
         return launch_decoder(KERNEL, "lz4t_decode128", comp, comp_len, prefix, prefix_len,
                               limit, out_capacity)

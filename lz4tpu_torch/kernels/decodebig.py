@@ -83,7 +83,8 @@ def decompress_blocks_big(blocks, block_maxsize: int, prefixes=None, device=None
 class Geometry:
     """The kernel's constants (``csrc/decode_big.cu``); a test may shrink
     them so that small inputs reach the window's end, the batch limits and
-    the long-sequence path."""
+    the long-sequence path.  ``DECODE128`` holds ``csrc/decode128.cu``'s,
+    which runs the same walk."""
 
     batch: int = 32  # sequences a batch, one a lane
     batch_bytes: int = 1 << 13  # a batch ends once it holds this much output
@@ -91,7 +92,14 @@ class Geometry:
     piece: int = 1 << 14  # and move in such pieces
     window: int = (1 << 16) - 32  # compressed bytes staged at once
     refill_margin: int = 3 << 13  # window left for the batch being parsed
+    stage_long: bool = True  # a long sequence's literals pass through the window piece by piece
 
+
+#: csrc/decode128.cu: an 8 KiB window, batches and long sequences at an
+#: eighth of it, a refill margin of five sixteenths; a long sequence's
+#: literals are read where they lie (the output is staged whole)
+DECODE128 = Geometry(batch_bytes=1 << 10, small=1 << 10, window=(1 << 13) - 32,
+                     refill_margin=(1 << 13) // 16 * 5, stage_long=False)
 
 FLAG_LAST = 1
 FLAG_LONG = 2
@@ -268,7 +276,7 @@ def decode_block_batched_plain(comp: bytes, prefix: bytes, limit: int, out_capac
         nxt = None
         if flags & FLAG_LONG:  # every thread copies, piece by piece
             op, lit_src, lit, ml, offset = entries[0]
-            for start in range(0, lit, geo.piece):
+            for start in range(0, lit if geo.stage_long else 0, geo.piece):
                 w_end = window_from(lit_src + start, min(lit - start, geo.piece))
             out.extend(comp[lit_src : lit_src + lit])
             for j in range(ml):
@@ -308,7 +316,8 @@ def decode_block_batched_plain(comp: bytes, prefix: bytes, limit: int, out_capac
 def decode_big_batched_plain(comp, comp_len, prefix, prefix_len, limit: int, out_capacity: int,
                              geo: Geometry = Geometry()):
     """``decode_plain`` with ``decode_block_batched_plain`` for each block:
-    the kernel's design on CPU tensors, used by the tests only."""
+    the kernel's design on CPU tensors, used by the tests only (with
+    ``geo=DECODE128``: ``decode128_batched_plain``)."""
     n_blocks = comp.shape[0]
     comp_np, pre_np = comp.numpy(), prefix.numpy()
     pw = prefix.shape[1]
@@ -326,3 +335,11 @@ def decode_big_batched_plain(comp, comp_len, prefix, prefix_len, limit: int, out
         out_len[i] = len(data)
         status[i] = st
     return out, out_len, status
+
+
+def decode128_batched_plain(comp, comp_len, prefix, prefix_len, limit: int, out_capacity: int):
+    """A model of ``csrc/decode128.cu`` on CPU tensors: the walk of
+    ``decode_big_batched_plain`` at decode128's geometry (the output staged
+    whole changes where bytes are kept, not which or in what order)."""
+    return decode_big_batched_plain(comp, comp_len, prefix, prefix_len, limit, out_capacity,
+                                    DECODE128)

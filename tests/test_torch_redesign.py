@@ -5,7 +5,8 @@ positions from the skip schedule, in-batch collisions forwarded through the
 slot type, first hit or tail lane decides, table writes up to it) and
 ``decode_big_batched_plain`` follows ``csrc/decode_big.cu`` (the walk over
 whole sequences inside the window, per-entry decode behind a prefix sum,
-first failure, independent and dependent copy rounds).  Both must equal the
+first failure, independent and dependent copy rounds), and at
+``decodebig.DECODE128`` ``csrc/decode128.cu``, which runs the same walk.  Both must equal the
 plain versions, which are the specification, byte for byte: bytes, lengths,
 statuses and tables.  The compressor's model is also held against the JAX
 package's spec and its scalar kernel in interpret mode.
@@ -229,6 +230,10 @@ SMALL_GEOMETRIES = [
     # a window of a few hundred bytes that moves all the time, 64-byte batches
     dbig.Geometry(batch_bytes=64, small=64, piece=128, window=480, refill_margin=400),
     dbig.Geometry(batch_bytes=256, small=200, piece=512, window=4096, refill_margin=2800),
+    # decode128.cu's walk, which reads a long sequence's literals where they lie
+    dbig.DECODE128,
+    dbig.Geometry(batch_bytes=64, small=64, piece=128, window=480, refill_margin=400,
+                  stage_long=False),
 ]
 
 
