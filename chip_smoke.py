@@ -27,12 +27,15 @@ Phases, in order; any mismatch or exception exits non-zero:
    decode128, decompress_v4, decode_big and decompress_v3 (64 KiB
    prefixes, hostile blocks, seeded mutations of valid blocks, hand-made
    streams at the edges of a 32-sequence batch, literal-heavy streams into
-   64 KiB many times decode128's window, one 64 KiB block behind a 64 KiB
-   prefix, timed on decode128 and decode_big as one wave of phase 5d; for
-   the last three also
+   64 KiB many times decode128's window, streams on which decompress_v4's
+   speculative walks never fall into step (its serial finish), one 64 KiB
+   block behind a 64 KiB prefix, timed in turns on decode128, decode_big
+   and decompress_v4 as one wave of phase 5d, and a member's 782 blocks
+   timed in turns on decompress_v3 and decode128; for the last three also
    blocks of 256 KiB, 1 MiB and 4 MiB without a prefix, with a 64 KiB
    prefix and with a prefix too short for their offsets, and streams with
-   length runs and long sequences all along).  Bytes, lengths, statuses
+   length runs and long sequences all along; the largest block alone timed
+   in turns on decode_big and decompress_v4).  Bytes, lengths, statuses
    and tables must be equal: a byte codec has no tolerance;
 3. the 64 KiB independent-block path at full size: each Silesia stand-in
    member (scale 1.0: 211,938,580 bytes) through ``compress_frame_parallel(block_size=65536,
@@ -102,6 +105,16 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[len(times) // 2]
+
+
+def in_turns(names, calls, rounds: int = 2):
+    """Median ``cuda_ms`` of each call, timed in turns (the order and its
+    reverse, ``rounds`` times), so that each is first as often."""
+    turns = {name: [] for name in names}
+    for order in (tuple(names), tuple(names)[::-1]) * rounds:
+        for name in order:
+            turns[name].append(cuda_ms(calls[name]))
+    return {name: sorted(t)[len(t) // 2] for name, t in turns.items()}
 
 
 def cut_blocks(data: bytes, size: int, k: int):
@@ -592,6 +605,47 @@ def decoder_window_streams(r: random.Random, count: int = 24, out_limit: int = 0
     return blocks, largest
 
 
+def desync_stream(rng, repeats: int, valid: bool = True, phase: int = 1) -> bytes:
+    """A stream on which walks from segment starts stay out of step with
+    the true chain.  A lead sequence (12 or 14 seeded literals, a match of
+    4 at offset 4) is followed by ``repeats`` times the 4-byte sequence
+    ``10 10 10 00`` (one literal, offset 16, a match of 4).  Parsed from any
+    other phase of that pattern the bytes form chains of their own that
+    never meet the true one, and the lead puts every multiple of 4 at
+    ``phase`` (1 or 3) of it: with a segment size that is a multiple of 4,
+    every segment but the first starts out of step and a round of walks
+    brings one more into step.  ``valid=False`` ends the stream with a
+    match that reaches before the output."""
+    lit = {1: 12, 3: 14}[phase]
+    head = bytes([lit << 4]) + bytes(rng.randrange(256) for _ in range(lit)) + b"\x04\x00"
+    tail = b"\x30end" if valid else b"\x00\xff\xff"
+    return head + b"\x10\x10\x10\x00" * repeats + tail
+
+
+def desync_streams():
+    """Streams on which decode_v4's walks from segment starts never fall
+    into step with the true chain, long enough at its segment size to need
+    the serial finish behind its rounds: valid and ending in an invalid
+    offset, at both phases."""
+    from lz4tpu_torch.kernels.decompress_v4 import ROUNDS, SEGMENT
+
+    r = random.Random(0xDE5C)
+    repeats = (ROUNDS + 4) * SEGMENT // 4
+    return [desync_stream(r, repeats, valid, phase) for valid in (True, False) for phase in (1, 3)]
+
+
+def v4_groups(args, limit: int) -> int:
+    """The groups of blocks in which decode_v4's kernels take this batch
+    (as many blocks a group as its scratch budget holds)."""
+    from lz4tpu_torch import build
+    from lz4tpu_torch.kernels.decode128 import round_up
+
+    comp = args[0]
+    group = build.load().lz4t_decode_v4_group(comp.shape[0], comp.shape[1],
+                                              round_up(limit + comp.shape[1], 16))
+    return -(-comp.shape[0] // group)
+
+
 def check_decoders(members):
     """The four decoders against their plain version (one function for all
     of them: they share a contract)."""
@@ -728,6 +782,18 @@ def check_decoders(members):
     print(f"  3,600 mutated small blocks ({n_bad} refused) on all four, 150 mutated 256 KiB "
           f"blocks ({int((want[2] != 0).sum())} refused) on v4, big and v3: equal to plain")
 
+    # streams on which decode_v4's walks never fall into step by themselves:
+    # its serial finish, on all four
+    blocks = desync_streams()
+    dargs = tensors(blocks, [b""] * len(blocks))
+    want, _ = plain(dargs, 65536)
+    for name, fn in decoders.items():
+        got = fn(*(a.cuda() for a in dargs), 65536)
+        torch.cuda.synchronize()
+        report[name]["err"] = max(report[name]["err"], same(f"{name}[desync streams]", got, want))
+    print(f"  {len(blocks)} desync streams of {len(blocks[0]):,d} B (statuses "
+          f"{sorted(set(want[2].tolist()))}) on all four: equal to plain")
+
     # timing at decode128's main-path shape: the valid 64 KiB blocks, no
     # prefix; decode128 and decode_v3 are reported at it, the others printed
     targs = tensors(comp, [b""] * len(comp))
@@ -742,6 +808,33 @@ def check_decoders(members):
     report["decode128"]["decode_big_ms"] = at_128["decode_big"]
     print(f"  at decode128's shape ({shape}): "
           + ", ".join(f"{name} {ms:.3f} ms" for name, ms in at_128.items()))
+    report["decode_v4"]["at_frame_rows"] = {shape: dict(
+        ms=at_128["decode_v4"], bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+        decode128_ms=at_128["decode128"], decode_big_ms=at_128["decode_big"])}
+    # a member's whole batch (mozilla's 782 blocks): decode_v3 beside
+    # decode128, in turns; decode_v4 takes it in groups of blocks
+    name = names[1]
+    raws = [members[name][i : i + 65536] for i in range(0, len(members[name]), 65536)]
+    kept = [(c, r) for c, r in zip(compress_blocks(raws, device="cuda")[0], raws) if c is not None]
+    mcomp = [c for c, _ in kept]
+    margs = tensors(mcomp, [b""] * len(mcomp))
+    dev = [a.cuda() for a in margs]
+    want, _ = plain(margs, 65536)
+    for name in ("decode_v3", "decode128", "decode_v4"):
+        report[name]["err"] = max(report[name]["err"],
+                                  same(f"{name}[a member's batch]", decoders[name](*dev, 65536), want))
+    print(f"  {len(mcomp)} blocks of {names[1]} on decode_v3, decode128 and decode_v4 "
+          f"({v4_groups(dev, 65536)} groups): equal to plain")
+    name = names[1]
+    at_member = in_turns(("decode_v3", "decode128"),
+                         {k: (lambda fn=decoders[k]: fn(*dev, 65536)) for k in decoders})
+    moved = int(margs[1].sum()) + sum(len(r) for _, r in kept)
+    label = f"{name}'s {len(mcomp)} blocks of 64 KiB"
+    report["decode_v3"]["at_frame_rows"] = {label: dict(
+        ms=at_member["decode_v3"], bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+        decode128_ms=at_member["decode128"])}
+    print(f"  {label}: " + ", ".join(f"{k} {ms:.3f} ms" for k, ms in at_member.items())
+          + f", bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
     # one block alone behind a 64 KiB prefix: what a wave of a linked frame
     # of 64 KiB blocks waits for (5d), on decode128 and decode_big
     ((one_comp, one_prefix),) = behind_prefix([cut_blocks(members[names[7]], 2 * 65536, 3)[1]])
@@ -752,19 +845,17 @@ def check_decoders(members):
     dev = [a.cuda() for a in oargs]
     moved = len(one_comp) + 65536 + len(one_prefix)
     label = "one 64 KiB block behind a 64 KiB prefix"
-    pair = ("decode128", "decode_big")
-    for name in pair:
+    trio = ("decode128", "decode_big", "decode_v4")
+    for name in trio:
         report[name]["err"] = max(report[name]["err"],
                                   same(f"{name}[{label}]", decoders[name](*dev, 65536), want))
-    # both run the same walk, so they are timed in turns, each first as often
-    turns = {name: [] for name in pair}
-    for order in (pair, pair[::-1]) * 2:
-        for name in order:
-            turns[name].append(cuda_ms(lambda fn=decoders[name]: fn(*dev, 65536)))
-    at_one = {name: sorted(t)[len(t) // 2] for name, t in turns.items()}
+    at_one = in_turns(trio, {k: (lambda fn=decoders[k]: fn(*dev, 65536)) for k in trio})
     report["decode128"]["at_frame_rows"] = {label: dict(
         ms=at_one["decode128"], bound_ms=moved / HBM_BYTES_PER_S * 1e3, n=len(one_comp),
         out=65536, decode_big_ms=at_one["decode_big"])}
+    report["decode_v4"]["at_frame_rows"][label] = dict(
+        ms=at_one["decode_v4"], bound_ms=moved / HBM_BYTES_PER_S * 1e3, n=len(one_comp),
+        out=65536, decode128_ms=at_one["decode128"], decode_big_ms=at_one["decode_big"])
     print(f"  {label} of {names[7]} ({len(one_comp):,d} B in): "
           + ", ".join(f"{name} {ms:.3f} ms" for name, ms in at_one.items())
           + f", bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
@@ -798,8 +889,9 @@ def check_decoders(members):
         got = decoders[name](*dev, limit)
         torch.cuda.synchronize()
         report[name]["err"] = max(report[name]["err"], same(f"{name}[big]", got, want))
-        print(f"  {name}[big]: {len(blocks)} blocks of 256 KiB to 4 MiB (statuses {kinds}), "
-              f"equal to plain")
+        groups = f", {v4_groups(dev, limit)} groups" if name == "decode_v4" else ""
+        print(f"  {name}[big]: {len(blocks)} blocks of 256 KiB to 4 MiB (statuses {kinds}"
+              f"{groups}), equal to plain")
     del dev, got
 
     # timing at the big-block shape: decode_v4 and decode_big are reported
@@ -820,13 +912,17 @@ def check_decoders(members):
           + ", ".join(f"{name} {ms:.3f} ms" for name, ms in at_big.items()))
     # one block of the largest size alone: what a wave of a linked frame waits for
     one = [a[-1:].contiguous() for a in dev]
-    one_ms = cuda_ms(lambda: dbig.decode_big(*one, limit))
+    pair = ("decode_big", "decode_v4")
+    at_one = in_turns(pair, {k: (lambda fn=decoders[k]: fn(*one, limit)) for k in pair})
     moved = int(targs[1][-1]) + len(big_raw[-1])
-    report["decode_big"]["at_frame_rows"] = {"one 4 MiB block": dict(
-        ms=one_ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3, n=int(targs[1][-1]),
-        out=len(big_raw[-1]))}
-    print(f"  decode_big on one block alone ({int(targs[1][-1]):,d} B -> {len(big_raw[-1]):,d} B): "
-          f"{one_ms:.3f} ms on the card, bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
+    for name in pair:
+        report[name].setdefault("at_frame_rows", {})["one 4 MiB block"] = dict(
+            ms=at_one[name], bound_ms=moved / HBM_BYTES_PER_S * 1e3, n=int(targs[1][-1]),
+            out=len(big_raw[-1]))
+    report["decode_v4"]["at_frame_rows"]["one 4 MiB block"]["decode_big_ms"] = at_one["decode_big"]
+    print(f"  one block alone ({int(targs[1][-1]):,d} B -> {len(big_raw[-1]):,d} B): "
+          + ", ".join(f"{k} {ms:.3f} ms" for k, ms in at_one.items())
+          + f", bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return report
 
 

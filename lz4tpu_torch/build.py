@@ -116,8 +116,13 @@ _SIGNATURES = {
     # prefix_len, limit, out, out_stride, out_len, status, nblocks, stream
     "lz4t_decode128": (_I, [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _I64,
                             _P, _P, _I, _P]),
+    # ..., nblocks, scratch, scratch_bytes, stream
     "lz4t_decode_v4": (_I, [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _I64,
-                            _P, _P, _I, _P]),
+                            _P, _P, _I, _P, _I64, _P]),
+    # nblocks, comp_stride, out_stride -> scratch bytes of lz4t_decode_v4
+    "lz4t_decode_v4_scratch": (_I64, [_I, _I64, _I64]),
+    # nblocks, comp_stride, out_stride -> blocks a group of lz4t_decode_v4 takes
+    "lz4t_decode_v4_group": (_I, [_I, _I64, _I64]),
     "lz4t_decode_big": (_I, [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _I64,
                              _P, _P, _I, _P]),
     "lz4t_decode_v3": (_I, [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _I64,

@@ -1,8 +1,9 @@
-// Shared sequence parser, batch walk and copy loops of the CUDA LZ4 block
-// decoders (decode_v3.cu: one warp per block; decode_v4.cu: one thread block
-// per block, serial parse; decode128.cu and decode_big.cu: one thread block
-// per block, warp 0 walking the tokens 32 sequences at a time ahead of copy
-// warps, through `parse_batch` below).  Semantics: reference
+// Shared sequence parser, batch walk and stream windows of the CUDA LZ4
+// block decoders (decode128.cu and decode_big.cu: one thread block per
+// block, warp 0 walking the tokens 32 sequences at a time ahead of copy
+// warps, through `parse_batch` below; decode_v3.cu: one warp per block on
+// the same walk; decode_v4.cu: speculative walks of segments through
+// `parse_shape`, the checks by `check_seq`).  Semantics: reference
 // src/raw/decompress.rs:59-138, stated in the port's plain version
 // (lz4tpu_torch/kernels/decode128.py decode_plain):
 //
@@ -43,10 +44,113 @@ struct Seq {
     int status;
 };
 
-// Parse the sequence at `pos` given output position `op`.  Reads only
-// bytes pos .. n-1 of the compressed stream, each through `comp(p)`: a
-// plain pointer for the decoders that parse from device memory, a staged
-// window with a fallback for the ones that read ahead into shared memory.
+// The shape of the sequence at `pos`: token, LSIC lengths, offset, and the
+// structural results, all independent of the output position, so a walk
+// can parse a stream from any position before it knows where its output
+// goes (decode_v4.cu).  Reads only bytes pos .. n-1 of the compressed
+// stream, each through `comp(p)`: a plain pointer for the decoders that
+// parse from device memory, a staged window with a fallback for the ones
+// that read ahead into shared memory.  The rest of a run of 0xFF length
+// bytes is found by `comp.skip_ff` (16 bytes a step): a walk may land inside
+// a huge match's length run.
+constexpr int SHAPE_OK = 0;
+constexpr int SHAPE_END_LITERALS = 1;  // the stream ends in the literal length or literals
+constexpr int SHAPE_END_MATCH = 2;     // the stream ends in the match length run
+
+struct Shape {
+    long long next_pos;   // comp position after this sequence (SHAPE_OK)
+    long long lit_src;    // comp position of the literals
+    long long lit_len;
+    long long match_len;  // 0: no match (block ends after literals)
+    long long offset;
+    int code;
+};
+
+template <class Reader>
+__device__ __forceinline__ Shape parse_shape(const Reader& comp, long long n, long long pos) {
+    Shape q;
+    q.next_pos = 0;
+    q.lit_src = 0;
+    q.lit_len = 0;
+    q.match_len = 0;
+    q.offset = 0;
+    q.code = SHAPE_OK;
+    int token = comp(pos++);
+    long long lit = token >> 4;
+    if (lit == 0xF) {
+        for (;;) {
+            if (pos >= n) {
+                q.code = SHAPE_END_LITERALS;
+                return q;
+            }
+            int more = comp(pos++);
+            lit += more;
+            if (more != 0xFF) break;
+            const long long run_end = comp.skip_ff(pos, n);  // the rest of a long run at once
+            lit += 255 * (run_end - pos);
+            pos = run_end;
+        }
+    }
+    if (pos + lit > n) {
+        q.code = SHAPE_END_LITERALS;
+        return q;
+    }
+    q.lit_src = pos;
+    q.lit_len = lit;
+    pos += lit;
+    if (n - pos < 2) {  // ends after literals (a stray byte re-reads as a token)
+        q.next_pos = pos;
+        return q;
+    }
+    q.offset = (long long)comp(pos) | ((long long)comp(pos + 1) << 8);
+    pos += 2;
+    long long ml = token & 0xF;
+    if (ml == 0xF) {
+        for (;;) {
+            if (pos >= n) {
+                q.code = SHAPE_END_MATCH;
+                return q;
+            }
+            int more = comp(pos++);
+            ml += more;
+            if (more != 0xFF) break;
+            const long long run_end = comp.skip_ff(pos, n);
+            ml += 255 * (run_end - pos);
+            pos = run_end;
+        }
+    }
+    q.match_len = ml + 4;
+    q.next_pos = pos;
+    return q;
+}
+
+// The checks that depend on the output position `op`, interleaved with the
+// shape's own results in parse_seq_with's order: literals running off the
+// stream, output capacity, the match length running off the stream, the
+// memory limit, a zero offset, an offset before the prefix.
+__device__ __forceinline__ int check_seq(int code, long long lit_len, long long match_len,
+                                         long long offset, long long op, long long plen,
+                                         long long limit, long long out_cap) {
+    if (code == SHAPE_END_LITERALS) return ERR_UNEXPECTED_END;
+    // defensive: the wrappers size out_cap >= limit + comp length, which
+    // every valid or invalid stream respects
+    if (op + lit_len > out_cap) return ERR_MEMORY_LIMIT;
+    if (code == SHAPE_END_MATCH) return ERR_UNEXPECTED_END;
+    if (match_len == 0) return OK;  // ends after literals
+    const long long mop = op + lit_len;
+    if (mop + match_len > limit) return ERR_MEMORY_LIMIT;
+    if (offset == 0) return ERR_ZERO_OFFSET;
+    if (offset > mop + plen) return ERR_INVALID_OFFSET;
+    return OK;
+}
+
+// Parse the sequence at `pos` given output position `op`: parse_shape and
+// check_seq in one pass, each check made as soon as its inputs are read.
+// It stays a pass of its own because the form built from the two halves
+// made the single sequences of decode_big and decode128 11-14 % slower on
+// one block, with or without parse_shape's 0xFF-run skip (the parser
+// section of tools/torch_chip_decode_v4_cost.py); a change to either half
+// changes this pass the same way.
 template <class Reader>
 __device__ __forceinline__ Seq parse_seq_with(const Reader& comp, long long n, long long pos,
                                               long long op, long long plen, long long limit,
@@ -120,42 +224,30 @@ __device__ __forceinline__ Seq parse_seq_with(const Reader& comp, long long n, l
     return q;
 }
 
+// the first position at or after p, below n, whose byte in device memory is
+// not 0xFF (n if none): 16 bytes a step once aligned, so that a walk that
+// lands in a long length run of a huge match does not read it a byte a time
+__device__ __forceinline__ long long skip_ff_global(const uint8_t* __restrict__ g, long long p,
+                                                    long long n) {
+    for (; p < n && ((uintptr_t)(g + p) & 15); p++)
+        if (__ldg(g + p) != 0xFF) return p;
+    for (; p + 16 <= n; p += 16) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(g + p));
+        if ((v.x & v.y & v.z & v.w) != 0xFFFFFFFFu) break;
+    }
+    for (; p < n; p++)
+        if (__ldg(g + p) != 0xFF) return p;
+    return n;
+}
+
+// a stream read straight from device memory, through the read-only cache
 struct PtrReader {
     const uint8_t* __restrict__ p;
-    __device__ __forceinline__ int operator()(long long i) const { return p[i]; }
-};
-
-__device__ __forceinline__ Seq parse_seq(const uint8_t* __restrict__ comp, long long n,
-                                         long long pos, long long op, long long plen,
-                                         long long limit, long long out_cap) {
-    return parse_seq_with(PtrReader{comp}, n, pos, op, plen, limit, out_cap);
-}
-
-// literals: out[op + j] = comp[src + j], j = tid, tid + nthreads, ...
-__device__ __forceinline__ void copy_literals(uint8_t* __restrict__ out,
-                                              const uint8_t* __restrict__ comp, long long op,
-                                              long long src, long long len, int tid,
-                                              int nthreads) {
-    for (long long j = tid; j < len; j += nthreads) out[op + j] = comp[src + j];
-}
-
-// match: out[op + j] = V[op - offset + (j mod offset)]
-__device__ __forceinline__ void copy_match(uint8_t* out, const uint8_t* __restrict__ prefix_end,
-                                           long long op, long long offset, long long len, int tid,
-                                           int nthreads) {
-    const long long base = op - offset;
-    if (offset >= len) {
-        for (long long j = tid; j < len; j += nthreads) {
-            long long s = base + j;
-            out[op + j] = s >= 0 ? out[s] : prefix_end[s];
-        }
-    } else {
-        for (long long j = tid; j < len; j += nthreads) {
-            long long s = base + j % offset;
-            out[op + j] = s >= 0 ? out[s] : prefix_end[s];
-        }
+    __device__ __forceinline__ int operator()(long long i) const { return __ldg(p + i); }
+    __device__ __forceinline__ long long skip_ff(long long i, long long n) const {
+        return skip_ff_global(p, i, n);
     }
-}
+};
 
 // ---------------------------------------------------------------------------
 // The batch walk of decode128.cu and decode_big.cu: warp 0 parses up to 32
@@ -195,6 +287,16 @@ struct Window {
         const int i = (int)p;
         return i < end ? c[i] : g[i];
     }
+    // the first position at or after p, below n, whose byte is not 0xFF
+    __device__ __forceinline__ long long skip_ff(long long p, long long n) const {
+        for (; p < end && ((uintptr_t)(c + p) & 3); p++)  // end <= n
+            if (c[p] != 0xFF) return p;
+        for (; p + 4 <= end; p += 4)
+            if (*reinterpret_cast<const unsigned*>(c + p) != 0xFFFFFFFFu) break;
+        for (; p < end; p++)
+            if (c[p] != 0xFF) return p;
+        return skip_ff_global(g, p, n);
+    }
 };
 
 // stage comp[from .. from + want) into the window, NTHREADS threads; the
@@ -217,6 +319,37 @@ __device__ __forceinline__ void load_window(Window& w, uint8_t* win, int n, int 
     w.c = win - base;
     w.base = base;
     w.end = end;
+}
+
+// load_window with the aligned 16-byte pieces issued as cp.async copies
+// (the row's first and last bytes are stored at once): the window is
+// staged only after cp_async_wait_all() and a barrier, so it can fill one
+// buffer while the threads still read another
+template <int NTHREADS>
+__device__ __forceinline__ void load_window_async(Window& w, uint8_t* win, int n, int from,
+                                                  int tid, int want) {
+    const int skew = (int)((uintptr_t)(w.g + from) & 15);
+    const int base = from - skew;
+    const int end = min(from + want, n);
+    for (int p = base + 16 * tid; p < end; p += 16 * NTHREADS) {
+        uint8_t* d = win + (p - base);
+        if (p >= 0 && p + 16 <= n) {
+            const unsigned to = (unsigned)__cvta_generic_to_shared(d);
+            asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(to), "l"(w.g + p)
+                         : "memory");
+        } else {
+            for (int i = 0; i < 16; i++)
+                if (p + i >= 0 && p + i < n) d[i] = w.g[p + i];
+        }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    w.c = win - base;
+    w.base = base;
+    w.end = end;
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // Lane 0 of warp 0: the batch of one sequence that the walk cannot take,

@@ -95,9 +95,11 @@ def decode128(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None)
     raise ValueError(f"decode128: unsupported device {comp.device}")
 
 
-def launch_decoder(stats, fn_name, comp, comp_len, prefix, prefix_len, limit, out_capacity):
+def launch_decoder(stats, fn_name, comp, comp_len, prefix, prefix_len, limit, out_capacity,
+                   extra=()):
     """Allocate outputs and launch one of the CUDA decoders (they share
-    one C signature)."""
+    one C signature; ``extra`` arguments, decode_v4's scratch, go before
+    the stream)."""
     lib = build.load()
     n_blocks = comp.shape[0]
     out = torch.zeros((n_blocks, out_capacity), dtype=torch.uint8, device=comp.device)
@@ -109,7 +111,8 @@ def launch_decoder(stats, fn_name, comp, comp_len, prefix, prefix_len, limit, ou
         rc = getattr(lib, fn_name)(
             comp.data_ptr(), comp.stride(0), comp_len.data_ptr(), prefix.data_ptr(),
             prefix_stride, prefix.shape[1], prefix_len.data_ptr(), limit, out.data_ptr(),
-            out_capacity, out_len.data_ptr(), status.data_ptr(), n_blocks, stream_handle(),
+            out_capacity, out_len.data_ptr(), status.data_ptr(), n_blocks, *extra,
+            stream_handle(),
         )
         stats.end(h)
     build.check(rc, fn_name)

@@ -93,6 +93,7 @@ class Geometry:
     window: int = (1 << 16) - 32  # compressed bytes staged at once
     refill_margin: int = 3 << 13  # window left for the batch being parsed
     stage_long: bool = True  # a long sequence's literals pass through the window piece by piece
+    read_ahead: bool = False  # a refill starts at the next batch (the other of two windows)
 
 
 #: csrc/decode128.cu: an 8 KiB window, batches and long sequences at an
@@ -100,14 +101,24 @@ class Geometry:
 #: literals are read where they lie (the output is staged whole)
 DECODE128 = Geometry(batch_bytes=1 << 10, small=1 << 10, window=(1 << 13) - 32,
                      refill_margin=(1 << 13) // 16 * 5, stage_long=False)
+#: csrc/decode_v3.cu: one warp a block on the same walk, two 4 KiB windows
+#: (the next loaded from the next batch's first byte while a batch is
+#: copied), 2 KiB pieces
+DECODE_V3 = Geometry(batch_bytes=1 << 10, small=1 << 10, piece=1 << 11, window=(1 << 12) - 32,
+                     refill_margin=(1 << 11) + 32 * (3 + 2 * ((1 << 10) // 255 + 1)),
+                     stage_long=False, read_ahead=True)
 
 FLAG_LAST = 1
 FLAG_LONG = 2
 
 
-def _parse_seq(comp: bytes, pos: int, op: int, plen: int, limit: int, out_cap: int):
-    """``parse_seq_with`` of ``csrc/decode_common.cuh``: (status, next_pos,
-    lit_src, lit_len, match_len, offset)."""
+#: the structural results of ``parse_shape`` (csrc/decode_common.cuh)
+SHAPE_OK, SHAPE_END_LITERALS, SHAPE_END_MATCH = 0, 1, 2
+
+
+def parse_shape(comp: bytes, pos: int):
+    """``parse_shape`` of ``csrc/decode_common.cuh``: (code, next_pos,
+    lit_src, lit_len, match_len, offset); match_len 0: no match."""
     n = len(comp)
     token = comp[pos]
     pos += 1
@@ -115,41 +126,60 @@ def _parse_seq(comp: bytes, pos: int, op: int, plen: int, limit: int, out_cap: i
     if lit == 0xF:
         while True:
             if pos >= n:
-                return ERR_UNEXPECTED_END, 0, 0, 0, 0, 0
+                return SHAPE_END_LITERALS, 0, 0, 0, 0, 0
             more = comp[pos]
             pos += 1
             lit += more
             if more != 0xFF:
                 break
     if pos + lit > n:
-        return ERR_UNEXPECTED_END, 0, 0, 0, 0, 0
+        return SHAPE_END_LITERALS, 0, 0, 0, 0, 0
     lit_src = pos
     pos += lit
-    if op + lit > out_cap:
-        return ERR_MEMORY_LIMIT, 0, 0, 0, 0, 0
     if n - pos < 2:  # ends after literals (a stray byte re-reads as a token)
-        return OK, pos, lit_src, lit, 0, 0
+        return SHAPE_OK, pos, lit_src, lit, 0, 0
     offset = comp[pos] | (comp[pos + 1] << 8)
     pos += 2
     ml = token & 0xF
     if ml == 0xF:
         while True:
             if pos >= n:
-                return ERR_UNEXPECTED_END, 0, 0, 0, 0, 0
+                return SHAPE_END_MATCH, 0, lit_src, lit, 0, offset
             more = comp[pos]
             pos += 1
             ml += more
             if more != 0xFF:
                 break
-    ml += 4
+    return SHAPE_OK, pos, lit_src, lit, ml + 4, offset
+
+
+def check_seq(code, lit, ml, offset, op, plen, limit, out_cap) -> int:
+    """``check_seq`` of ``csrc/decode_common.cuh``: the shape's results and
+    the checks that need ``op``, in the shared parser's order."""
+    if code == SHAPE_END_LITERALS:
+        return ERR_UNEXPECTED_END
+    if op + lit > out_cap:
+        return ERR_MEMORY_LIMIT
+    if code == SHAPE_END_MATCH:
+        return ERR_UNEXPECTED_END
+    if ml == 0:
+        return OK
     mop = op + lit
     if mop + ml > limit:
-        return ERR_MEMORY_LIMIT, 0, 0, 0, 0, 0
+        return ERR_MEMORY_LIMIT
     if offset == 0:
-        return ERR_ZERO_OFFSET, 0, 0, 0, 0, 0
+        return ERR_ZERO_OFFSET
     if offset > mop + plen:
-        return ERR_INVALID_OFFSET, 0, 0, 0, 0, 0
-    return OK, pos, lit_src, lit, ml, offset
+        return ERR_INVALID_OFFSET
+    return OK
+
+
+def _parse_seq(comp: bytes, pos: int, op: int, plen: int, limit: int, out_cap: int):
+    """``parse_seq_with`` of ``csrc/decode_common.cuh``, its shape and its
+    checks: (status, next_pos, lit_src, lit_len, match_len, offset)."""
+    code, next_pos, lit_src, lit, ml, offset = parse_shape(comp, pos)
+    st = check_seq(code, lit, ml, offset, op, plen, limit, out_cap)
+    return (st, next_pos, lit_src, lit, ml, offset) if st == OK else (st, 0, 0, 0, 0, 0)
 
 
 def _parse_batch(comp: bytes, w_end: int, pos: int, op: int, plen: int, limit: int,
@@ -272,7 +302,7 @@ def decode_block_batched_plain(comp: bytes, prefix: bytes, limit: int, out_capac
         entries, next_pos, flags = cur["entries"], cur["next_pos"], cur["flags"]
         done = cur["status"] != OK or bool(flags & FLAG_LAST)
         if not flags & FLAG_LONG and w_end < n and next_pos + geo.refill_margin > w_end:
-            w_end = window_from(entries[0][1] if entries else next_pos)
+            w_end = window_from(next_pos if geo.read_ahead or not entries else entries[0][1])
         nxt = None
         if flags & FLAG_LONG:  # every thread copies, piece by piece
             op, lit_src, lit, ml, offset = entries[0]

@@ -4,13 +4,15 @@ block, any block size), its plain version, and the bytes-level batch API.
 
 Counterpart of ``lz4tpu/kernels/decompress_v3.py``.  What v3 computes in
 its own way carries over: literals and near matches (the source is within
-the newest 3 KiB of output) never touch device memory, output leaves in
-aligned stores, and only far matches pay a read of the
+the warp's ring of newest output) never touch device memory, output leaves
+in aligned stores, and only far matches pay a read of the
 ``[prefix | output]`` buffers.  The TPU version's register accumulator,
 its lane/sublane rolls and its one-memory-action-per-iteration switch were
-means to that end on the TPU and have no counterpart.  As in ``lz4tpu``
-nothing routes here by default: the decoder is reached through
-``decompress_blocks_v3`` and measured beside ``decode128`` and
+means to that end on the TPU and have no counterpart.  The warp walks the
+stream with the 32-sequence walk of ``decode128`` and ``decode_big``; its
+model is ``decodebig.decode_big_batched_plain`` at ``decodebig.DECODE_V3``.
+As in ``lz4tpu`` nothing routes here by default: the decoder is reached
+through ``decompress_blocks_v3`` and measured beside ``decode128`` and
 ``decode_v4``.  It never returns ``STATUS_FALLBACK``.
 
 Tensor contract: the same as ``decode128.decode128``, with
