@@ -61,9 +61,23 @@ Phases, in order; any mismatch or exception exits non-zero:
    at 4 MiB blocks and linked at 64 KiB blocks.  Beside each, the same frame
    geometry through the scalar compressor (phases 3, 4a, 4b).  Then the size
    contract: over the corpus cut into 32 KiB blocks, the lane compressor's
-   total must be no larger than the greedy compressor's.
+   total must be no larger than the greedy compressor's;
+6. the reference's own entry points, over the same corpus: (a) every
+   member through ``CompressionSettings()`` (4 MiB independent blocks,
+   content checksum: one compress.cu launch a member) and
+   ``decompress_frame`` (one decode_big launch), in turns with the
+   per-block path (a callable engine of ``compress_block_cuda``, a
+   ``decode_block`` loop); both frames equal to phase 4a's; (b) one member
+   at 64 KiB blocks with block checksums and a 64 KiB dictionary
+   (decode128 batched, decompress_v4 per block), and
+   ``into_read().read(n)`` in odd-sized pieces; (c) one member as a linked
+   frame of 4 MiB blocks through the per-block writer and reader; (d) the
+   CLI (``python3 -m lz4tpu_torch.cli.dolz4`` / ``delz4``) as subprocesses
+   on one member: engines ``cuda`` and ``cuda-parallel`` (frames equal to
+   6a's and 4a's), ``cuda-parallel --lane-kernel``, and ``--level 9`` on a
+   256 KiB slice.
 
-In phases 3 to 5 outputs must be byte-equal to the inputs, and every
+In phases 3 to 6 outputs must be byte-equal to the inputs, and every
 kernel of a path must have been launched on it: the launch counts are set
 to 0 before each path and read after it.
 
@@ -1218,7 +1232,7 @@ def rates(label, n_in, n_out, t_comp, t_dec) -> str:
 
 def phase_big_and_linked(members):
     """Big blocks and linked frames over the whole corpus; returns one
-    report per part."""
+    report per part, the summaries, and (a)'s frames."""
     import lz4tpu_torch as lt
 
     total = sum(map(len, members.values()))
@@ -1228,8 +1242,10 @@ def phase_big_and_linked(members):
     meter = PathMeter("(a) big blocks", ("compress", "decode_big"))
     n_out = 0
     t_comp = t_dec = 0.0
+    frames_4a = {}  # phase 6 holds the streaming writer's frames equal to these
     for name, data in members.items():
         frame, dt = wall(lambda: lt.compress_frame_parallel(data, 4 << 20, content_checksum=True))
+        frames_4a[name] = frame
         t_comp += dt
         back, dt = wall(lambda: lt.decompress_frame_parallel(frame))
         t_dec += dt
@@ -1303,7 +1319,7 @@ def phase_big_and_linked(members):
     print(f"  (d) {len(payloads)} blocks of {name} through decompress_blocks_v3: "
           f"{sum(map(len, raws)) / dt / 1e6:.1f} MB/s (host wall, incl. transfers)")
     reports["d"] = meter.finish()
-    return reports, summaries
+    return reports, summaries, frames_4a
 
 
 def phase_lane(members, scalar):
@@ -1417,6 +1433,202 @@ def phase_lane(members, scalar):
     return reports
 
 
+def launch_counts():
+    return {m.KERNEL.name: m.KERNEL.launches for m in kernel_modules()}
+
+
+def launched(before):
+    """Launches of each kernel since ``before`` (a ``launch_counts()``)."""
+    return {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+
+
+def read_blocks(frame, dictionary=b""):
+    """A frame through the streaming reader's per-block loop (``decode_block``)."""
+    import lz4tpu_torch as lt
+
+    reader = lt.LZ4FrameReader(frame)
+    parts = []
+    while (block := reader.decode_block(dictionary)) is not None:
+        parts.append(block)
+    return b"".join(parts)
+
+
+def phase_streaming(members, frames_4a):
+    """The reference's own entry points on the card: (a) the default writer
+    and reader (``CompressionSettings()``, ``decompress_frame``) over the
+    corpus, in turns with the per-block path (a callable engine, a
+    ``decode_block`` loop), frames equal to each other and to phase 4a's;
+    (b) the same on one member at 64 KiB blocks with block checksums and a
+    64 KiB dictionary, and ``into_read().read(n)`` in odd pieces; (c) one
+    member as a linked frame (the per-block writer and reader); (d) the
+    CLI as subprocesses.  Returns one report per part."""
+    import functools
+    import tempfile
+
+    import lz4tpu_torch as lt
+    from lz4tpu_torch.cli import dolz4
+    from lz4tpu_torch.kernels.compress import compress_block_cuda
+
+    per_block_engine = functools.partial(compress_block_cuda, device="cuda")
+    per_block = lt.CompressionSettings().engine(per_block_engine)
+    names = list(members)
+    total = sum(map(len, members.values()))
+    reports = {}
+
+    # (a) the default writer and reader, batched, in turns with the per-block path
+    meter = PathMeter("(6a) default writer and reader", ("compress", "decode_big"))
+    secs = {(path, op): 0.0 for path in ("batched", "per block") for op in ("comp", "dec")}
+    batched_frames = {}
+    for i, (name, data) in enumerate(members.items()):
+        frames, counts = {}, {}
+        for path in (("batched", "per block") if i % 2 == 0 else ("per block", "batched")):
+            before = launch_counts()
+            if path == "batched":
+                frame, dt = wall(lambda: lt.CompressionSettings().compress_bytes(data))
+                secs[path, "comp"] += dt
+                back, dt = wall(lambda: lt.decompress_frame(frame))
+            else:
+                frame, dt = wall(lambda: per_block.compress_bytes(data))
+                secs[path, "comp"] += dt
+                back, dt = wall(lambda: read_blocks(frame))
+            secs[path, "dec"] += dt
+            counts[path] = launched(before)
+            frames[path] = frame
+            if back != data:
+                fail(f"(6a) {path}: {name} does not round-trip")
+            meter.compressed(frame, len(data))
+            meter.decoded("decode_big", frame, len(data))
+        if not frames["batched"] == frames["per block"] == frames_4a[name]:
+            fail(f"(6a) {name}: the batched, per-block and phase 4a frames differ")
+        _, _, nc, ns = frame_stats(frames["batched"])
+        want = {"compress": 1, "decode_big": 1} if nc else {"compress": 1}
+        if counts["batched"] != want:
+            fail(f"(6a) {name}: the batched path launched {counts['batched']}, not {want}")
+        batched_frames[name] = frames["batched"]
+        print(f"    {name:8s} {nc + ns:3d} blocks; batched launches {counts['batched']}, "
+              f"per block {counts['per block']}")
+    n_out = sum(map(len, batched_frames.values()))
+    for path in ("batched", "per block"):
+        rates(f"(6a) 4 MiB independent blocks, {path}", total, n_out,
+              secs[path, "comp"], secs[path, "dec"])
+    print("  (6a) batched and per-block frames equal to each other and to phase 4a's")
+    reports["6a"] = meter.finish()
+
+    # (b) one member at 64 KiB blocks, block checksums, a 64 KiB dictionary
+    meter = PathMeter("(6b) 64 KiB blocks, dictionary", ("compress", "decode128", "decode_v4"))
+    dic = members[names[0]][-65536:]
+    name = names[7]
+    data = members[name]
+
+    def settings():
+        return lt.CompressionSettings().block_size(65536).block_checksums(True).dictionary(1, dic)
+
+    frame, t_comp = wall(lambda: settings().compress_bytes(data))
+    back, t_dec = wall(lambda: lt.decompress_frame(frame, dictionary=dic))
+    serial, t_comp_serial = wall(lambda: settings().engine(per_block_engine).compress_bytes(data))
+    back_serial, t_dec_serial = wall(lambda: read_blocks(frame, dic))
+    whole = lt.compress_frame_parallel(data, 65536, dictionary=dic, dictionary_id=1,
+                                       block_checksums=True)
+    if not frame == serial == whole:
+        fail(f"(6b) {name}: the batched, per-block and compress_frame_parallel frames differ")
+    if not back == back_serial == data:
+        fail(f"(6b) {name}: the dictionary frame does not round-trip")
+    pieces = []
+    io_reader = lt.LZ4FrameReader(frame).into_read(dic)
+    sizes = (1, 7, 4093, 65537, 100003, 13)
+    while piece := io_reader.read(sizes[len(pieces) % len(sizes)]):
+        pieces.append(piece)
+    if b"".join(pieces) != data:
+        fail(f"(6b) {name}: into_read().read(n) in odd pieces does not give the member")
+    nblocks = len(frame_blocks(frame))
+    for _ in range(2):
+        meter.compressed(frame, len(data), row_extra=len(dic))
+    meter.decoded("decode128", frame, len(data), prefix_bytes=len(dic) * nblocks)
+    for _ in range(2):
+        meter.decoded("decode_v4", frame, len(data), prefix_bytes=len(dic) * nblocks)
+    mb = len(data) / 1e6
+    print(f"  (6b) {name}, {nblocks} blocks of 64 KiB behind a 64 KiB dictionary: batched "
+          f"compress {mb / t_comp:.1f} MB/s, decompress {mb / t_dec:.1f} MB/s; per block "
+          f"compress {mb / t_comp_serial:.1f} MB/s, decompress {mb / t_dec_serial:.1f} MB/s; "
+          f"frames equal; into_read in {len(pieces)} pieces equal")
+    reports["6b"] = meter.finish()
+
+    # (c) one member as a linked frame of 4 MiB blocks: the per-block writer and reader
+    meter = PathMeter("(6c) linked frame, per block", ("compress", "decode_big"))
+    name = names[0]
+    data = members[name]
+    frame, t_comp = wall(lambda: lt.CompressionSettings().independent_blocks(False)
+                         .compress_bytes(data))
+    back, t_dec = wall(lambda: lt.decompress_frame(frame))
+    if back != data:
+        fail(f"(6c) {name}: the linked frame does not round-trip")
+    if len(frame) > len(batched_frames[name]):
+        fail(f"(6c) {name}: the linked frame is larger than the independent one")
+    blocks = frame_blocks(frame)
+    meter.compressed(frame, len(data) + 65536 * (len(blocks) - 1))  # rows carry windows
+    meter.decoded("decode_big", frame, len(data),
+                  prefix_bytes=sum(65536 for k, (c, _, _) in enumerate(blocks) if c and k))
+    rates(f"(6c) {name} as one linked frame of {len(blocks)} blocks of 4 MiB", len(data),
+          len(frame), t_comp, t_dec)
+    reports["6c"] = meter.finish()
+
+    # (d) the CLI as subprocesses on the card, one member in a temporary directory
+    meter = PathMeter("(6d) CLI", ("compress128", "compress"))
+    name = names[-1]
+    data = members[name]
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, name)
+        with open(src, "wb") as f:
+            f.write(data)
+        head = os.path.join(tmp, "head")
+        with open(head, "wb") as f:
+            f.write(data[: 256 << 10])
+
+        def cli(tool, *argv):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, "-m", f"lz4tpu_torch.cli.{tool}", *argv, "-v"],
+                               cwd=HERE, capture_output=True, text=True, timeout=300)
+            if r.returncode != 0:
+                fail(f"(6d) {tool} {' '.join(argv)}: exit {r.returncode}: {r.stderr[-2000:]}")
+            print(f"    {tool} {' '.join(a.replace(tmp + os.sep, '') for a in argv)}: "
+                  f"{r.stderr.strip()} ({time.perf_counter() - t0:.1f} s with start-up)")
+
+        def read(path):
+            with open(path, "rb") as f:
+                return f.read()
+
+        cases = (("cuda", src, [], batched_frames[name]),
+                 ("cuda-parallel", src, [], frames_4a[name]),
+                 ("cuda-parallel", src, ["--lane-kernel"], None),
+                 ("cuda", head, ["--level", "9"], None))
+        for engine, path, extra, want in cases:
+            out = os.path.join(tmp, f"{engine}{''.join(extra)}.lz4")
+            cli("dolz4", path, out, "--engine", engine, *extra)
+            cli("delz4", out, out + ".back", "--engine", engine)
+            if read(out + ".back") != read(path):
+                fail(f"(6d) dolz4/delz4 --engine {engine} {extra}: the output differs from the input")
+            if want is not None and read(out) != want:
+                fail(f"(6d) dolz4 --engine {engine}: the frame differs from phase 6a's")
+            if extra == ["--lane-kernel"]:
+                # in process too, so that this process counts the lane kernel's launch
+                dolz4.main([path, out + ".here", "--engine", engine, *extra])
+                if read(out + ".here") != read(out):
+                    fail("(6d) dolz4 --lane-kernel: the frame made here differs from the "
+                         "subprocess's")
+                meter.lane_compressed(read(out), len(data))
+            if extra[:1] == ["--level"]:
+                greedy = lt.CompressionSettings().compress_bytes(data[: 256 << 10])
+                meter.compressed(greedy, 256 << 10)
+                print(f"    --level 9 on {256 << 10} B: {len(read(out)):,d} B against "
+                      f"{len(greedy):,d} B greedy")
+                if len(read(out)) > len(greedy):
+                    fail("(6d) dolz4 --level 9 made a larger frame than the greedy parse")
+    print(f"  (6d) dolz4/delz4 on {name} ({len(data):,d} B): engines cuda, cuda-parallel, "
+          f"cuda-parallel --lane-kernel and --level 9 round-trip; scalar frames equal to 6a's")
+    reports["6d"] = meter.finish()
+    return reports
+
+
 def profile_lane(members):
     """The largest member through phase 5: (a) 4 MiB independent lane
     blocks, (c) its 1 MiB segments as linked lane frames."""
@@ -1466,7 +1678,7 @@ def main() -> int:
 
     marks = []
     phase("phase 1: environment")
-    phase_env()
+    smi = phase_env()
 
     from lz4tpu_torch.utils import silesia
 
@@ -1491,7 +1703,7 @@ def main() -> int:
     if args.profile:
         profile_round_trip(members)
     phase("phase 4: big blocks and linked frames")
-    reports, scalar = phase_big_and_linked(members)
+    reports, scalar, frames_4a = phase_big_and_linked(members)
     paths.update(reports)
     if args.profile:
         profile_big_and_linked(members)
@@ -1499,6 +1711,8 @@ def main() -> int:
     paths.update(phase_lane(members, {"3": scalar_3, **scalar}))
     if args.profile:
         profile_lane(members)
+    phase("phase 6: the reference's own entry points: streaming writer and reader, CLI")
+    paths.update(phase_streaming(members, frames_4a))
     phase("")
 
     rows = []
@@ -1523,6 +1737,7 @@ def main() -> int:
     for r in sorted(rows, key=lambda r: r["main_bound_ms"] - r["main_ms"]):
         print(f"  {r['name']:12s} {r['launches']:4d} {r['main_ms']:10.1f} {r['main_bound_ms']:8.3f} "
               f"{r['main_ms'] - r['main_bound_ms']:10.1f}")
+    print(smi)  # the card's name and power limit, again beside the results
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

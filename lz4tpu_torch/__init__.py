@@ -14,8 +14,18 @@ that raises.  ``device="cpu"`` runs each kernel's plain version instead.
   compressor, which cuts big blocks into 32 KiB chunks and splices them),
   ``decompress_frame_parallel``, and ``decompress_frames_parallel`` (many
   frames, linked ones in waves);
-* frames, streaming: ``CompressionSettings``, ``LZ4FrameReader``,
-  ``decompress_frame``;
+* frames, streaming (the reference crate's API): ``CompressionSettings``
+  (an independent-block frame's blocks in one launch a batch;
+  ``level()`` adds the host HC parse), ``LZ4FrameReader`` (``read_all``
+  of an independent frame in one launch), ``LZ4FrameIoReader``
+  (``into_read``), ``decompress_frame``;
+* the crate root's block codec: ``compress_block`` and
+  ``decompress_block`` (the reference's signatures, ``device=None``
+  meaning ``"cuda"``), ``compress_block_hc`` (host parse), ``XXHash32``
+  and ``xxh32``;
+* the command line: ``python3 -m lz4tpu_torch.cli.dolz4`` and
+  ``python3 -m lz4tpu_torch.cli.delz4``; the C library as an oracle:
+  ``lz4tpu_torch.interop``;
 * raw blocks: ``compress_blocks``, ``compress_block_cuda``,
   ``compress_blocks_128`` (lane compressor: default, window and strict
   modes), ``splice_streams``,
@@ -27,7 +37,7 @@ that raises.  ``device="cpu"`` runs each kernel's plain version instead.
 """
 
 from .frame.compress import CompressionSettings
-from .frame.decompress import LZ4FrameReader, decompress_frame
+from .frame.decompress import LZ4FrameIoReader, LZ4FrameReader, decompress_frame
 from .frame.errors import (
     CompressionError,
     DecompressionError,
@@ -36,10 +46,12 @@ from .frame.errors import (
 )
 from .frame.header import MAGIC, WINDOW_SIZE
 from .kernels.compress import compress_block_cuda, compress_blocks
+from .kernels.compress import compress_block_cuda as compress_block
 from .kernels.compress128 import compress_blocks_128
 from .kernels.decode128 import decompress_blocks_128
 from .kernels.decodebig import decompress_blocks_big
 from .kernels.decompress import decompress_block_cuda, decompress_blocks
+from .kernels.decompress import decompress_block_cuda as decompress_block
 from .kernels.decompress_v3 import decompress_blocks_v3
 from .kernels.decompress_v4 import decompress_blocks_v4
 from .kernels.splice import splice_streams
@@ -49,12 +61,20 @@ from .parallel.pipeline import (
     decompress_frames_parallel,
 )
 from .spec.block import BlockTooBig, DecodeError, Incompressible
+from .spec.hc import compress_block_hc
+from .spec.xxhash32 import XXHash32, xxh32
 from .state import lane_tables_from_jax, lane_tables_to_jax, tables_from_jax, tables_to_numpy
 
 __all__ = [
     "CompressionSettings",
     "LZ4FrameReader",
+    "LZ4FrameIoReader",
     "decompress_frame",
+    "compress_block",
+    "compress_block_hc",
+    "decompress_block",
+    "XXHash32",
+    "xxh32",
     "compress_frame_parallel",
     "decompress_frame_parallel",
     "decompress_frames_parallel",

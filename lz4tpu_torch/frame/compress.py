@@ -3,16 +3,24 @@
 The port's own copy of ``lz4tpu/frame/compress.py`` (reference
 ``src/framed/compress.rs``): the ``CompressionSettings`` builder, frame
 header emission with the xxh32 header checksum, dictionary priming, the
-per-block loop with the incompressible fallback capping output at input
-size, independent-vs-linked table/window maintenance, and the EndMark +
-content checksum trailer.
+incompressible fallback capping output at input size, independent-vs-linked
+table/window maintenance, and the EndMark + content checksum trailer.
 
-The block engine is ``"cuda"`` (default: the CUDA compressor through
-``kernels.compress.compress_block_cuda``), ``"cpu"`` (the same adapter
-on the kernel's plain version) or a callable with the spec's
-``compress_block`` contract.  The JAX package's threaded native path and
-its high-compression ``level`` parse are not part of the port.  Batch
-compression of whole frames is ``lz4tpu_torch.parallel.pipeline``.
+The block engine is ``"cuda"`` (default), ``"cpu"`` (the kernels' plain
+versions), a ``torch.device``, or a callable with the spec's
+``compress_block`` contract.  On a device engine an independent-block
+frame is written in batches: the stream is read ``BATCH_BYTES`` at a time
+(whole blocks), and every block of a batch goes through one launch of the
+greedy compressor (``parallel.pipeline._scalar_blocks``), so
+``compress(reader, writer)`` streams an input of any size.  The frame is
+byte-identical to the per-block loop.  Linked frames, whose encoder table
+chains from block to block, and callable engines take the per-block loop.
+The JAX package's ``threads(n)`` has no counterpart: the batch takes its
+place.
+
+``level(v)`` adds the high-compression parse (``spec.hc``), which runs on
+the host: each block's greedy payload (from the batch, or from the loop)
+caps the HC parse, and the smaller payload wins.
 """
 
 from __future__ import annotations
@@ -20,24 +28,32 @@ from __future__ import annotations
 import functools
 import io
 
-from ..runtime import resolve_device
+from ..parallel.pipeline import _scalar_blocks
+from ..runtime import host_u8, resolve_device
 from ..spec.block import Incompressible
+from ..spec.hc import compress_block_hc
 from ..spec.table import U32Table, prime_u32_table
 from ..spec.xxhash32 import xxh32
-from ..utils.hashing import make_hasher
+from ..utils.hashing import engine_hash_device, make_hasher
 from ..utils.hashing import xxh32 as payload_xxh32
 from .errors import InvalidBlockSize
 from .header import INCOMPRESSIBLE, MAGIC, WINDOW_SIZE, BlockDescriptor, Flags
 
 
+#: input bytes a batch of an independent-block frame holds at most (whole
+#: blocks): one launch for any Silesia member, bounded memory for any stream
+BATCH_BYTES = 256 << 20
+
+
 def _resolve_engine(name):
-    """Map an engine name to (``compress_block`` callable, checksum device)."""
+    """Map an engine to (``compress_block`` callable, device): the device
+    is ``None`` for a callable engine, which the batches cannot take."""
     if callable(name):
-        return name, "cpu"
+        return name, None
     from ..kernels.compress import compress_block_cuda
 
     dev = resolve_device(name)
-    return functools.partial(compress_block_cuda, device=dev), dev.type
+    return functools.partial(compress_block_cuda, device=dev), dev
 
 
 class CompressionSettings:
@@ -56,6 +72,7 @@ class CompressionSettings:
         self._dictionary = None
         self._dictionary_id = None
         self._acceleration = 1
+        self._level = None
         self._engine = "cuda"
 
     # -- builder setters (reference naming) ---------------------------------
@@ -98,8 +115,18 @@ class CompressionSettings:
         self._acceleration = max(int(v), 1)
         return self
 
+    def level(self, v: int | None) -> "CompressionSettings":
+        """High-compression level.  ``None``/``1`` = the reference's greedy
+        parse; ``>= 2`` = hash-chain + lazy parse (``spec/hc.py``, on the
+        host) with search depth ``2**(level-1)``.  Every block is compressed
+        with both parses and the smaller payload wins, so levelled output is
+        never larger than the greedy output."""
+        self._level = None if v is None or int(v) <= 1 else int(v)
+        return self
+
     def engine(self, name) -> "CompressionSettings":
-        """Block-codec backend: ``"cuda"``, ``"cpu"`` or a callable."""
+        """Block-codec backend: ``"cuda"``, ``"cpu"``, a ``torch.device`` or
+        a callable."""
         self._engine = name
         return self
 
@@ -132,7 +159,8 @@ class CompressionSettings:
     # -- the frame writer itself (reference compress.rs:159-282) ------------
 
     def _compress_internal(self, reader, writer, content_size) -> None:
-        compress_block, hash_device = _resolve_engine(self._engine)
+        compress_block, dev = _resolve_engine(self._engine)
+        hash_device = engine_hash_device() if dev is None else dev.type
 
         flags = Flags(
             independent_blocks=self._independent_blocks,
@@ -158,6 +186,41 @@ class CompressionSettings:
         header.append((xxh32(header[4:]) >> 8) & 0xFF)
         writer.write(bytes(header))
 
+        if flags.independent_blocks and dev is not None:
+            self._write_batches(reader, writer, flags, content_hasher, dev)
+        else:
+            self._write_blocks(reader, writer, flags, content_hasher, compress_block,
+                               hash_device)
+
+        writer.write((0).to_bytes(4, "little"))
+        if content_hasher is not None:
+            writer.write(content_hasher.digest().to_bytes(4, "little"))
+
+    def _write_batches(self, reader, writer, flags, content_hasher, dev) -> None:
+        """Independent blocks, ``BATCH_BYTES`` of input at a time: one
+        greedy-compressor launch over every block of a batch, each block
+        behind the dictionary with the primed template table, output capped
+        at the block's size (reference ``compress.rs:202-263``)."""
+        bs = self._block_size
+        initializer = self._dictionary or b""
+        while True:
+            batch = _read_up_to(reader, max(BATCH_BYTES // bs, 1) * bs)
+            if not batch:
+                return
+            if content_hasher is not None:
+                content_hasher.update(batch)
+            payloads, lens = _scalar_blocks(host_u8(batch), bs, self._dictionary, False,
+                                            self._acceleration, dev)
+            mv = memoryview(batch)
+            for i, greedy in enumerate(payloads):
+                raw = mv[i * bs : i * bs + int(lens[i])]
+                data = initializer + raw if initializer else raw
+                self._write_block(writer, data, len(initializer), greedy, flags, dev.type)
+
+    def _write_blocks(self, reader, writer, flags, content_hasher, compress_block,
+                      hash_device) -> None:
+        """The per-block loop (reference ``compress.rs:202-275``): linked
+        frames, whose table and window carry over, and callable engines."""
         # dictionary priming: template table + block initializer
         template_table = U32Table()
         block_initializer = b""
@@ -178,8 +241,10 @@ class CompressionSettings:
                 content_hasher.update(in_buffer[window_offset:])
 
             data = bytes(in_buffer)
-            # on cap-abort the table has still applied all mutations up to
-            # the abort point, like the reference's NoPartialWrites
+            # the greedy parse always runs (also with a level) so the table
+            # evolves identically across linked blocks; on cap-abort it has
+            # still applied all mutations up to the abort point, like the
+            # reference's NoPartialWrites
             compressed = None
             try:
                 compressed = bytes(
@@ -193,16 +258,7 @@ class CompressionSettings:
                 )
             except Incompressible:
                 pass
-            if compressed is not None:
-                writer.write(len(compressed).to_bytes(4, "little"))
-                payload = compressed
-            else:
-                writer.write((read_bytes | INCOMPRESSIBLE).to_bytes(4, "little"))
-                payload = data[window_offset:]
-
-            writer.write(payload)
-            if flags.block_checksums:
-                writer.write(payload_xxh32(payload, device=hash_device).to_bytes(4, "little"))
+            self._write_block(writer, data, window_offset, compressed, flags, hash_device)
 
             if flags.independent_blocks:
                 in_buffer = bytearray(block_initializer)
@@ -212,9 +268,29 @@ class CompressionSettings:
                 table.slide(forget)
                 del in_buffer[:forget]
 
-        writer.write((0).to_bytes(4, "little"))
-        if content_hasher is not None:
-            writer.write(content_hasher.digest().to_bytes(4, "little"))
+    def _write_block(self, writer, data, cursor, greedy, flags, hash_device) -> None:
+        """Emit the block ``data[cursor:]`` (``data[:cursor]`` is its
+        prefix) from its greedy payload (``None``: over the cap): with a
+        level, the HC parse capped at that payload competes; a block that
+        neither parse shrank is stored raw."""
+        compressed = greedy
+        if self._level is not None:
+            cap = len(greedy) if greedy is not None else len(data) - cursor
+            try:
+                hc = bytes(compress_block_hc(data, cursor=cursor, level=self._level, cap=cap))
+                if greedy is None or len(hc) < len(greedy):
+                    compressed = hc
+            except Incompressible:
+                pass
+        if compressed is not None:
+            writer.write(len(compressed).to_bytes(4, "little"))
+            payload = compressed
+        else:
+            writer.write(((len(data) - cursor) | INCOMPRESSIBLE).to_bytes(4, "little"))
+            payload = bytes(data[cursor:])
+        writer.write(payload)
+        if flags.block_checksums:
+            writer.write(payload_xxh32(payload, device=hash_device).to_bytes(4, "little"))
 
 
 def _read_up_to(reader, n: int) -> bytes:

@@ -1,16 +1,22 @@
 """LZ4 frame decompression — header parsing, block chain, checksum verify.
 
-The port's own copy of the serial reader of ``lz4tpu/frame/decompress.py``
+The port's own copy of the reader of ``lz4tpu/frame/decompress.py``
 (reference ``src/framed/decompress.rs``): ``LZ4FrameReader`` header parse
 and verification, ``decode_block`` with EndMark / stored-block /
-block-checksum / carry-over window semantics, and the one-shot
-``decompress_frame``.  It is the port's decode path for
-linked frames.  The JAX package's threaded native ``read_all`` is not
-part of the port, so errors always follow the serial order.
+block-checksum / carry-over window semantics, the ``io.RawIOBase``
+adapter ``LZ4FrameIoReader`` (``into_read``), and the one-shot
+``decompress_frame``.
 
 The block engine is ``"cuda"`` (default: ``kernels.decompress
 .decompress_block_cuda``), ``"cpu"`` (the same adapter on the plain
-version) or a callable with the spec's ``decompress_block`` contract.
+versions), a ``torch.device``, or a callable with the spec's
+``decompress_block`` contract.  ``read_all`` of a fresh reader of an
+independent-block frame on a device engine reads the whole block chain,
+then decodes every compressed block in one launch (decode128 for 64 KiB
+blocks, decode_big for larger ones); it raises the errors of the
+per-block loop in the same order: the first failing block in frame order,
+and within a block size, truncation, block checksum, decode.  Linked
+frames, partly read readers and callable engines take the per-block loop.
 """
 
 from __future__ import annotations
@@ -18,10 +24,11 @@ from __future__ import annotations
 import functools
 import io
 
+from ..parallel.pipeline import _decode_payloads, _join_blocks, _scan_frame
 from ..runtime import resolve_device
 from ..spec.block import DecodeError
 from ..spec.xxhash32 import xxh32
-from ..utils.hashing import make_hasher
+from ..utils.hashing import engine_hash_device, make_hasher
 from ..utils.hashing import xxh32 as payload_xxh32
 from .errors import (
     BlockChecksumFail,
@@ -36,13 +43,14 @@ from .header import INCOMPRESSIBLE, MAGIC, WINDOW_SIZE, BlockDescriptor, Flags
 
 
 def _resolve_engine(name):
-    """Map an engine name to (``decompress_block`` callable, checksum device)."""
+    """Map an engine to (``decompress_block`` callable, device): the device
+    is ``None`` for a callable engine, which ``read_all`` cannot batch."""
     if callable(name):
-        return name, "cpu"
+        return name, None
     from ..kernels.decompress import decompress_block_cuda
 
     dev = resolve_device(name)
-    return functools.partial(decompress_block_cuda, device=dev), dev.type
+    return functools.partial(decompress_block_cuda, device=dev), dev
 
 
 def _read_exact(reader, n: int) -> bytes:
@@ -68,7 +76,8 @@ class LZ4FrameReader:
 
     def __init__(self, reader, engine="cuda"):
         reader = _as_reader(reader)
-        self._decompress_block, self._hash_device = _resolve_engine(engine)
+        self._decompress_block, self._device = _resolve_engine(engine)
+        self._hash_device = engine_hash_device() if self._device is None else self._device.type
 
         magic = int.from_bytes(_read_exact(reader, 4), "little")
         if magic != MAGIC:
@@ -106,6 +115,7 @@ class LZ4FrameReader:
         # carry-over window only exists in linked-block mode
         self._carryover_window = None if self.flags.independent_blocks else bytearray()
         self._finished = False
+        self._blocks_read = 0
 
     def block_size(self) -> int:
         return self.block_maxsize
@@ -119,6 +129,7 @@ class LZ4FrameReader:
         if self._finished:
             return None
 
+        self._blocks_read += 1
         block_length = int.from_bytes(_read_exact(self.reader, 4), "little")
         if block_length == 0:
             if self._content_hasher is not None:
@@ -180,13 +191,95 @@ class LZ4FrameReader:
         return output
 
     def read_all(self, dictionary: bytes = b"") -> bytes:
-        """Decode every block in order and concatenate."""
+        """Decode every block in order and concatenate: in one launch for a
+        fresh reader of an independent frame on a device engine, else block
+        by block."""
+        if (self._device is not None and self._carryover_window is None
+                and not self._blocks_read and not self._finished):
+            return self._read_all_batched(dictionary)
         parts = []
         while True:
             block = self.decode_block(dictionary)
             if block is None:
                 return b"".join(parts)
             parts.append(block)
+
+    def _read_all_batched(self, dictionary: bytes) -> bytes:
+        """``read_all`` as one decode launch, raising what the per-block
+        loop would raise first: the chain is scanned until its end or its
+        first size or truncation error, the blocks before that are checked
+        until the first bad block checksum, the blocks before that are
+        decoded, and the first error in frame order wins."""
+        self._finished = True
+        blocks = []
+        try:
+            _, expected = _scan_frame(self, blocks=blocks)
+            stop = None
+        except (BlockSizeOverflow, InputTruncated) as e:
+            stop = e
+        self._blocks_read = len(blocks)
+        good = len(blocks)
+        if self.flags.block_checksums:
+            good = next((k for k, (_, payload, checksum) in enumerate(blocks)
+                         if payload_xxh32(payload, device=self._hash_device) != checksum), good)
+        try:
+            outputs = _decode_payloads([p for c, p, _ in blocks[:good] if c],
+                                       self.block_maxsize, bytes(dictionary)[-WINDOW_SIZE:],
+                                       self._device)
+        except DecodeError as e:
+            raise CodecError(e.kind) from e
+        if good < len(blocks):
+            raise BlockChecksumFail("a block checksum was invalid")
+        if stop is not None:
+            raise stop
+        output = _join_blocks(blocks, outputs)
+        if self._content_hasher is not None:
+            if self._content_hasher.update(output).digest() != expected:
+                raise FrameChecksumFail("the frame checksum was invalid")
+        return output
+
+    def into_read(self, dictionary: bytes = b""):
+        """An ``io.RawIOBase`` adapter over the block stream
+        (``LZ4FrameIoReader``, reference ``decompress.rs:46-77``)."""
+        return LZ4FrameIoReader(self, dictionary)
+
+
+class LZ4FrameIoReader(io.RawIOBase):
+    """File-like reader over an ``LZ4FrameReader`` block chain: ``read(n)``
+    returns at most ``n`` bytes of the current block, decoding the next
+    one when it is used up; ``read(-1)`` returns the rest of the frame."""
+
+    def __init__(self, frame_reader: LZ4FrameReader, dictionary: bytes = b""):
+        self._frame_reader = frame_reader
+        self._dictionary = dictionary
+        self._buffer = b""
+        self._taken = 0
+        self._eof = False
+
+    def readable(self) -> bool:
+        return True
+
+    def _fill(self) -> bytes:
+        while not self._eof and self._taken == len(self._buffer):
+            block = self._frame_reader.decode_block(self._dictionary)
+            if block is None:
+                self._eof = True
+                break
+            self._buffer = block
+            self._taken = 0
+        return self._buffer[self._taken :]
+
+    def read(self, size: int = -1) -> bytes:
+        if size is None or size < 0:
+            parts = [self._fill()]
+            self._taken = len(self._buffer)
+            parts.append(self._frame_reader.read_all(self._dictionary) if not self._eof else b"")
+            self._eof = True
+            return b"".join(parts)
+        avail = self._fill()
+        take = min(len(avail), size)
+        self._taken += take
+        return avail[:take]
 
 
 def decompress_frame(reader, dictionary: bytes = b"", engine="cuda") -> bytes:

@@ -36,6 +36,11 @@ of one output block are spliced into ONE block of the declared size
 (``kernels/splice.py``).  That is how a 4 MiB block becomes 128 parallel
 parses.  Such a frame is valid LZ4 of about the same size, not the
 streaming writer's bytes.
+
+The streaming API takes the same one-launch paths for independent frames:
+``CompressionSettings`` writes its batches through ``_scalar_blocks``, and
+``LZ4FrameReader.read_all`` decodes through ``_scan_frame`` and
+``_decode_payloads``.
 """
 
 from __future__ import annotations
@@ -316,14 +321,15 @@ def compress_frame_parallel(
     return b"".join(parts)
 
 
-def _scan_frame(reader, check=None):
+def _scan_frame(reader, check=None, blocks=None):
     """The frame's block chain without decoding: [(compressed, payload,
     checksum)] and the trailer checksum, with the streaming reader's
     hostile-input checks.  ``check(payload, checksum)``, if given, is called
-    for each block as it is read."""
+    for each block as it is read.  The blocks are appended to ``blocks``
+    when given, so that the caller keeps those read before an error."""
     from ..frame.decompress import _read_exact
 
-    blocks = []
+    blocks = [] if blocks is None else blocks
     stream = reader.reader
     while True:
         block_length = int.from_bytes(_read_exact(stream, 4), "little")
@@ -398,38 +404,43 @@ def decompress_frame_parallel(
                                verify_checksums, lane_kernel)
 
 
+def _decode_payloads(payloads, block_maxsize, dictionary, dev, lane_kernel=None):
+    """The compressed payloads of an independent frame, decoded in one
+    launch; raises the first failing block's error in frame order (the
+    decoder's ``DecodeError``, or ``BlockSizeOverflow`` for a block that
+    decoded past ``block_maxsize``)."""
+    if not payloads:
+        return []
+    if lane_kernel is False:
+        decoder = decode_v4
+    else:
+        decoder = decode128 if block_maxsize <= MAX_BLOCK else decode_big
+    comp, comp_len = pack_rows(payloads, dev)
+    prefix, prefix_len = pack_prefixes(
+        [dictionary] * len(payloads) if dictionary else None, len(payloads), dev
+    )
+    out, out_len, status = decoder(comp, comp_len, prefix, prefix_len, block_maxsize)
+    out_len = out_len.cpu().numpy()
+    status = status.cpu().numpy()
+    bad = check_decoded(status, out_len, block_maxsize)
+    if bad is not None:
+        raise bad[1]
+    return fetch_rows(out, out_len, np.ones(len(payloads), bool))
+
+
+def _join_blocks(blocks, outputs) -> bytes:
+    """The frame's content: decoded ``outputs`` in the places of the
+    compressed ``blocks``, stored payloads as they are."""
+    outputs = iter(outputs)
+    return b"".join(next(outputs) if compressed else payload for compressed, payload, _ in blocks)
+
+
 def _decode_independent(reader, blocks, expected_sum, dictionary, dev, verify_checksums,
                         lane_kernel=None) -> bytes:
     """The scanned blocks of an independent frame, decoded in one launch."""
-    to_decode = [p for c, p, _ in blocks if c]
-    outputs = []
-    if to_decode:
-        if lane_kernel is False:
-            decoder = decode_v4
-        else:
-            decoder = decode128 if reader.block_maxsize <= MAX_BLOCK else decode_big
-        comp, comp_len = pack_rows(to_decode, dev)
-        prefix, prefix_len = pack_prefixes(
-            [dictionary] * len(to_decode) if dictionary else None, len(to_decode), dev
-        )
-        out, out_len, status = decoder(comp, comp_len, prefix, prefix_len, reader.block_maxsize)
-        out_len = out_len.cpu().numpy()
-        status = status.cpu().numpy()
-        bad = check_decoded(status, out_len, reader.block_maxsize)
-        if bad is not None:
-            raise bad[1]
-        outputs = fetch_rows(out, out_len, np.ones(len(to_decode), bool))
-
-    parts = []
-    k = 0
-    for compressed, payload, _ in blocks:
-        if compressed:
-            parts.append(outputs[k])
-            k += 1
-        else:
-            parts.append(payload)
-    result = b"".join(parts)
-
+    outputs = _decode_payloads([p for c, p, _ in blocks if c], reader.block_maxsize,
+                               dictionary, dev, lane_kernel)
+    result = _join_blocks(blocks, outputs)
     if verify_checksums and reader.flags.content_checksum and expected_sum is not None:
         _check_content(result, expected_sum, dev)
     return result

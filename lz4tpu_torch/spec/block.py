@@ -2,8 +2,9 @@
 
 The port's own copy of the error types of the reference's raw codec
 (reference ``src/raw/decompress.rs:8-17`` and the ``NoPartialWrites``
-writer of ``src/framed/compress.rs:285-314``) and of the block-format
-constants that the kernels and their plain versions share.
+writer of ``src/framed/compress.rs:285-314``), of the block-format
+constants that the kernels and their plain versions share, and of the
+LSIC writer of the host HC parse (``spec/hc.py``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,19 @@ MFLIMIT = 5
 # the part of a prefix (dictionary / linked window) that a block can
 # address: offsets are u16
 WINDOW_SIZE = 64 * 1024
+
+
+def _write_lsic_tail(out: bytearray, value: int) -> None:
+    """LSIC varint continuation bytes (reference ``compress/mod.rs:243-260``).
+
+    The head (min(value, 15)) lives in the token; if it saturated, emit
+    (value-15) as a run of 0xFF bytes plus a final byte < 0xFF.
+    """
+    if value < 0xF:
+        return
+    value -= 0xF
+    out.extend(b"\xff" * (value // 0xFF))
+    out.append(value % 0xFF)
 
 
 def compress_bound(n: int) -> int:

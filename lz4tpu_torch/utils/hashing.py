@@ -47,6 +47,12 @@ def make_hasher(seed: int = 0, device="cpu"):
     return XXHash32(seed)
 
 
+def engine_hash_device() -> str:
+    """Checksum backend for a frame whose block engine is a callable (it
+    names no device): the C one where there is a card to build it for."""
+    return "cuda" if torch.cuda.is_available() else "cpu"
+
+
 def xxh32(data, seed: int = 0, device="cpu") -> int:
     """One-shot xxHash32 with the backend of ``make_hasher``."""
     return make_hasher(seed, device).update(data).digest()

@@ -36,7 +36,8 @@ def _forbidden(name):
 
 def test_import_leaves_jax_and_lz4tpu_out():
     code = (
-        "import sys, lz4tpu_torch\n"
+        "import sys, lz4tpu_torch, lz4tpu_torch.cli.dolz4, lz4tpu_torch.cli.delz4\n"
+        "import lz4tpu_torch.interop, lz4tpu_torch.spec.hc\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lz4tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -53,10 +54,13 @@ def test_no_jax_or_lz4tpu_import_in_source(path):
     assert not bad, f"{path} imports {bad}"
 
 
-def _entry_points():
+def _entry_points(tmp_path):
     import lz4tpu_torch as lt
+    from lz4tpu_torch.cli import delz4, dolz4
 
     frame = lt.compress_frame_parallel(b"abc" * 100, device="cpu")
+    (tmp_path / "in").write_bytes(b"abc" * 100)
+    (tmp_path / "in.lz4").write_bytes(frame)
     return {
         "compress_frame_parallel": lambda: lt.compress_frame_parallel(b"abc" * 100),
         "decompress_frame_parallel": lambda: lt.decompress_frame_parallel(frame),
@@ -76,6 +80,17 @@ def _entry_points():
         "compress_blocks_128": lambda: lt.compress_blocks_128([b"abc" * 100]),
         "CompressionSettings": lambda: lt.CompressionSettings().compress_bytes(b"abc"),
         "decompress_frame": lambda: lt.decompress_frame(frame),
+        "compress_block": lambda: lt.compress_block(b"abc" * 100),
+        "decompress_block": lambda: lt.decompress_block(b"\x10a"),
+        "LZ4FrameReader": lambda: lt.LZ4FrameReader(frame),
+        "CompressionSettings_level": lambda: lt.CompressionSettings().level(9).compress_bytes(
+            b"abc" * 100),
+        "CompressionSettings_linked": lambda: lt.CompressionSettings().independent_blocks(
+            False).compress_bytes(b"abc" * 100),
+        "dolz4": lambda: dolz4.main([str(tmp_path / "in"), str(tmp_path / "out.lz4")]),
+        "delz4": lambda: delz4.main([str(tmp_path / "in.lz4"), str(tmp_path / "out")]),
+        "dolz4_parallel": lambda: dolz4.main([str(tmp_path / "in"), str(tmp_path / "out.lz4"),
+                                              "--engine", "cuda-parallel"]),
     }
 
 
@@ -85,10 +100,12 @@ def _entry_points():
     "decompress_blocks_128", "decompress_blocks_v4", "CompressionSettings",
     "decompress_frame", "decompress_blocks_big", "decompress_blocks_v3",
     "decompress_frames_parallel", "compress_frame_parallel_linked",
-    "compress_frame_parallel_lane", "compress_blocks_128",
+    "compress_frame_parallel_lane", "compress_blocks_128", "compress_block",
+    "decompress_block", "LZ4FrameReader", "CompressionSettings_level",
+    "CompressionSettings_linked", "dolz4", "delz4", "dolz4_parallel",
 ]))
-def test_default_device_is_cuda_and_raises_without_it(name, monkeypatch):
-    fn = _entry_points()[name]
+def test_default_device_is_cuda_and_raises_without_it(name, monkeypatch, tmp_path):
+    fn = _entry_points(tmp_path)[name]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device=None means 'cuda'"):
         fn()
