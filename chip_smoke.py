@@ -75,9 +75,25 @@ Phases, in order; any mismatch or exception exits non-zero:
    CLI (``python3 -m lz4tpu_torch.cli.dolz4`` / ``delz4``) as subprocesses
    on one member: engines ``cuda`` and ``cuda-parallel`` (frames equal to
    6a's and 4a's), ``cuda-parallel --lane-kernel``, and ``--level 9`` on a
-   256 KiB slice.
+   256 KiB slice;
+7. the device mesh and the resumable runner, over the same corpus: (a)
+   phase 3's geometry through ``compress_frame_parallel(mesh=...)`` and
+   ``decompress_frame_parallel(mesh=...)`` on a mesh of every card and on
+   a mesh of four entries of ``cuda:0`` (and, with more cards, on each
+   count of them), decoded once more on decompress_v4; (b) phase 4b's
+   linked segments on the four-entry mesh, decoded by one
+   ``decompress_frames_parallel(mesh=...)`` call; (c) phase 5a's lane
+   frames on the four-entry mesh, each launch taking whole 4 MiB blocks;
+   (d) ``run_sharded_compress`` over the corpus as one file in 16 MiB
+   shards (13), resumed after three shard files are deleted,
+   ``run_sharded_decompress``, and two processes on ``cuda:0`` that meet
+   through ``torch.distributed`` (gloo) and claim alternate shards.
+   Frames and archives must be byte-equal to the phases they mirror and to
+   each other, and a call must launch each kernel once on every mesh entry
+   that gets work.  On one card this measures the sharding's cost, not
+   scaling.
 
-In phases 3 to 6 outputs must be byte-equal to the inputs, and every
+In phases 3 to 7 outputs must be byte-equal to the inputs, and every
 kernel of a path must have been launched on it: the launch counts are set
 to 0 before each path and read after it.
 
@@ -98,6 +114,7 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SEGMENT = 1 << 20  # phase 4 (b): a log segment or page group
+RUNNER_SHARD = 16 << 20  # phase 7 (d): the runner's shard, 13 of them at full scale
 
 
 def fail(msg: str) -> None:
@@ -1156,6 +1173,7 @@ def phase_main(members, scale: float):
 
     meter = PathMeter("64 KiB independent blocks", ("compress", "decode128", "decode_v4", "decode_big"))
     total_in = total_out = 0
+    frames_3 = {}  # phase 7 holds the mesh's frames equal to these
     t_comp = t_dec = 0.0
     print(f"main path: scale {scale}, 64 KiB blocks, content checksum")
     for name, data in members.items():
@@ -1170,6 +1188,7 @@ def phase_main(members, scale: float):
         t2 = time.perf_counter()
         if back != data:
             fail(f"main path: {name} does not round-trip")
+        frames_3[name] = frame
         _, _, nc, ns = frame_stats(frame)
         meter.compressed(frame, len(data))
         meter.decoded("decode128", frame, len(data))
@@ -1207,7 +1226,7 @@ def phase_main(members, scale: float):
     print(f"  4 MiB-block frame: {names[-1]}, ratio {len(frame) / len(data):.4f}, "
           f"round trip equal on decode_big and on decompress_v4")
     report = meter.finish()
-    return report, rates("main path total", total_in, total_out, t_comp, t_dec)
+    return report, rates("main path total", total_in, total_out, t_comp, t_dec), frames_3
 
 
 def wall(fn):
@@ -1272,6 +1291,7 @@ def phase_big_and_linked(members):
         meter.compressed(frame, len(seg) + 65536 * (len(blocks) - 1))  # rows carry windows
         meter.decoded("decode128", frame, len(seg), prefix_bytes=windows)
     linked_total = sum(map(len, frames))
+    frames_4b = frames
     summaries["4b"] = rates(f"(b) {len(segments)} linked frames of 64 KiB blocks, "
                             f"{max(len(frame_blocks(f)) for f in frames)} waves",
                             total, linked_total, t_comp, t_dec)
@@ -1319,7 +1339,7 @@ def phase_big_and_linked(members):
     print(f"  (d) {len(payloads)} blocks of {name} through decompress_blocks_v3: "
           f"{sum(map(len, raws)) / dt / 1e6:.1f} MB/s (host wall, incl. transfers)")
     reports["d"] = meter.finish()
-    return reports, summaries, frames_4a
+    return reports, summaries, frames_4a, frames_4b
 
 
 def phase_lane(members, scalar):
@@ -1336,8 +1356,10 @@ def phase_lane(members, scalar):
     reports = {}
 
     def round_trips(path, needed, block_size, decoder, scalar_path):
-        """Every member as one independent lane frame of ``block_size``."""
+        """Every member as one independent lane frame of ``block_size``:
+        the path's report, its frames and its summary."""
         meter = PathMeter(path, needed)
+        frames = {}
         n_out = 0
         t_comp = t_dec = 0.0
         for name, data in members.items():
@@ -1352,17 +1374,19 @@ def phase_lane(members, scalar):
                 fail(f"{path}: {name} has {len(sizes)} blocks, not one per {block_size} bytes")
             meter.lane_compressed(frame, len(data))
             meter.decoded(decoder, frame, len(data))
+            frames[name] = frame
             n_out += len(frame)
-        rates(path, total, n_out, t_comp, t_dec)
+        summary = rates(path, total, n_out, t_comp, t_dec)
         print(f"    scalar compressor, same geometry (phase {scalar_path}): {scalar[scalar_path]}")
-        return meter.finish()
+        return meter.finish(), frames, summary
 
     # (a) true 4 MiB independent blocks, 128 spliced chunks each
-    reports["5a"] = round_trips("(5a) lane, 4 MiB independent blocks",
-                                ("compress128", "decode_big"), 4 << 20, "decode_big", "4a")
+    reports["5a"], frames_5a, summary_5a = round_trips(
+        "(5a) lane, 4 MiB independent blocks", ("compress128", "decode_big"), 4 << 20,
+        "decode_big", "4a")
     # (b) 64 KiB independent blocks, 2 spliced chunks each
-    reports["5b"] = round_trips("(5b) lane, 64 KiB independent blocks",
-                                ("compress128", "decode128"), 65536, "decode128", "3")
+    reports["5b"], _, _ = round_trips("(5b) lane, 64 KiB independent blocks",
+                                      ("compress128", "decode128"), 65536, "decode128", "3")
 
     # (c) the 1 MiB segments as linked lane frames, decoded in waves
     segments = [data[i : i + SEGMENT] for data in members.values()
@@ -1430,7 +1454,7 @@ def phase_lane(members, scalar):
     if lane_total > greedy_total:
         fail(f"the lane compressor's total {lane_total} is larger than the greedy "
              f"compressor's {greedy_total} on the same 32 KiB blocks")
-    return reports
+    return reports, frames_5a, summary_5a
 
 
 def launch_counts():
@@ -1629,6 +1653,255 @@ def phase_streaming(members, frames_4a):
     return reports
 
 
+RUNNER_WORKER = """
+import sys
+sys.path.insert(0, sys.argv[1])
+import torch.distributed as dist
+import lz4tpu_torch as lt
+rank, world = lt.initialize_distributed(sys.argv[2], 2, int(sys.argv[3]))
+stats = lt.run_sharded_compress(
+    sys.argv[4], sys.argv[5], shard_bytes=int(sys.argv[6]), block_size=65536,
+    process_index=rank, process_count=world, mesh=lt.make_mesh(devices=["cuda:0"]),
+    workdir=sys.argv[7], finalize=False)
+dist.barrier()
+dist.destroy_process_group()
+print("WORKER", rank, stats["compressed_here"], flush=True)
+"""
+
+
+def phase_mesh(members, frames, summaries):
+    """Slice 8's path over the whole corpus: (7a) phase 3's geometry on a
+    mesh of every card and on four entries of ``cuda:0``, decoded on both
+    and once on decompress_v4; (7b) phase 4b's linked segments on the
+    four-entry mesh, decoded by one ``decompress_frames_parallel``; (7c)
+    phase 5a's lane frames on the four-entry mesh, no block split between
+    entries; (7d) the runner: a file of the corpus in 16 MiB shards,
+    resumed after three shards are deleted, decoded, and again by two
+    processes on ``cuda:0``.  Frames must equal the phases' they mirror
+    (``frames``), and the launches of a call the mesh entries that get
+    work; MB/s are printed beside the mirrored phase's (``summaries``).
+    Returns one report per part."""
+    import shutil
+    import socket
+    import tempfile
+
+    import torch
+
+    import lz4tpu_torch as lt
+    from lz4tpu_torch.kernels.compress128 import MAX_B
+    from lz4tpu_torch.parallel import pipeline
+    from lz4tpu_torch.parallel.mesh import shard_bounds
+
+    total = sum(map(len, members.values()))
+    n_cards = torch.cuda.device_count()
+    four = lt.make_mesh(devices=["cuda:0"] * 4)
+    meshes = {f"every card ({n_cards})": lt.make_mesh(), "cuda:0 x4": four}
+    if n_cards > 1:
+        meshes.update({f"{k} cards": lt.make_mesh(k) for k in range(2, n_cards)})
+    reports = {}
+
+    def check_launches(part, got, want):
+        want = {k: v for k, v in want.items() if v}
+        if got != want:
+            fail(f"{part}: launches {got}, not one a mesh entry with work: {want}")
+
+    # (a) 64 KiB independent blocks, phase 3's geometry
+    print(f"  phase 3's geometry, same run: {summaries['3']}")
+    for label, mesh in meshes.items():
+        part = f"(7a) 64 KiB independent blocks, mesh {label}"
+        meter = PathMeter(part, ("compress", "decode128"))
+        t_comp = t_dec = 0.0
+        for name, data in members.items():
+            before = launch_counts()
+            frame, dt = wall(lambda: lt.compress_frame_parallel(data, 65536, content_checksum=True,
+                                                                mesh=mesh))
+            t_comp += dt
+            if frame != frames["3"][name]:
+                fail(f"{part}: {name}'s frame differs from phase 3's")
+            _, _, nc, ns = frame_stats(frame)
+            check_launches(f"{part}, {name} compress", launched(before),
+                           {"compress": min(nc + ns, mesh.size)})
+            before = launch_counts()
+            back, dt = wall(lambda: lt.decompress_frame_parallel(frame, mesh=mesh))
+            t_dec += dt
+            if back != data:
+                fail(f"{part}: {name} does not round-trip")
+            check_launches(f"{part}, {name} decompress", launched(before),
+                           {"decode128": min(nc, mesh.size)})
+            meter.compressed(frame, len(data))
+            meter.decoded("decode128", frame, len(data))
+        rates(part, total, sum(map(len, frames["3"].values())), t_comp, t_dec)
+        reports[f"7a {label}"] = meter.finish()
+    part = "(7a) decompress_v4 (lane_kernel=False), mesh cuda:0 x4"
+    meter = PathMeter(part, ("decode_v4",))
+    t_dec = 0.0
+    for name, data in members.items():
+        frame = frames["3"][name]
+        back, dt = wall(lambda: lt.decompress_frame_parallel(frame, mesh=four, lane_kernel=False))
+        t_dec += dt
+        if back != data:
+            fail(f"{part}: {name} does not round-trip")
+        meter.decoded("decode_v4", frame, len(data))
+    print(f"  {part}: decompress {total / t_dec / 1e6:.1f} MB/s (host wall, incl. transfers)")
+    reports["7a v4"] = meter.finish()
+
+    # (b) phase 4b's 1 MiB segments as parallel_linked frames on four entries
+    segments = [data[i : i + SEGMENT] for data in members.values()
+                for i in range(0, len(data), SEGMENT)]
+    part = "(7b) linked frames of 64 KiB blocks, mesh cuda:0 x4"
+    meter = PathMeter(part, ("compress", "decode128"))
+    before = launch_counts()
+    made, t_comp = wall(lambda: [lt.compress_frame_parallel(seg, 65536, parallel_linked=True,
+                                                            mesh=four) for seg in segments])
+    check_launches(f"{part} compress", launched(before), {"compress": sum(
+        min(len(frame_blocks(f)), 4) for f in made)})
+    if made != frames["4b"]:
+        fail(f"{part}: the frames differ from phase 4b's")
+    back, t_dec = wall(lambda: lt.decompress_frames_parallel(made, mesh=four))
+    if back != segments:
+        fail(f"{part}: the segments do not round-trip")
+    for seg, frame in zip(segments, made):
+        blocks = frame_blocks(frame)
+        windows = sum(65536 for k, (c, _, _) in enumerate(blocks) if c and k)
+        meter.compressed(frame, len(seg) + 65536 * (len(blocks) - 1))  # rows carry windows
+        meter.decoded("decode128", frame, len(seg), prefix_bytes=windows)
+    rates(f"{part}, {len(segments)} frames", total, sum(map(len, made)), t_comp, t_dec)
+    print(f"    phase 4b, same run: {summaries['4b']}")
+    reports["7b"] = meter.finish()
+
+    # (c) phase 5a's lane frames of 4 MiB blocks on four entries; each
+    # launch's chunks are whole blocks' (a spy on the wrapper, which counts)
+    part = "(7c) lane, 4 MiB independent blocks, mesh cuda:0 x4"
+    meter = PathMeter(part, ("compress128", "decode_big"))
+    rows = []
+    real = pipeline.compress128
+
+    def spy(src, base, *args, **kw):
+        rows.append(int(base.shape[0]))
+        return real(src, base, *args, **kw)
+
+    t_comp = t_dec = 0.0
+    pipeline.compress128 = spy
+    try:
+        for name, data in members.items():
+            del rows[:]
+            frame, dt = wall(lambda: lt.compress_frame_parallel(data, 4 << 20, lane_kernel=True,
+                                                                mesh=four))
+            t_comp += dt
+            if frame != frames["5a"][name]:
+                fail(f"{part}: {name}'s frame differs from phase 5a's")
+            lens = [min(4 << 20, len(data) - i) for i in range(0, len(data), 4 << 20)]
+            want = [sum(-(-n // MAX_B) for n in lens[lo:hi])
+                    for lo, hi in shard_bounds(len(lens), 4) if hi > lo]
+            if rows != want:
+                fail(f"{part}: {name}'s launches took {rows} chunks, not whole blocks' {want}")
+            back, dt = wall(lambda: lt.decompress_frame_parallel(frame, mesh=four))
+            t_dec += dt
+            if back != data:
+                fail(f"{part}: {name} does not round-trip")
+            meter.lane_compressed(frame, len(data))
+            meter.decoded("decode_big", frame, len(data))
+    finally:
+        pipeline.compress128 = real
+    rates(part, total, sum(map(len, frames["5a"].values())), t_comp, t_dec)
+    print(f"    phase 5a, same run: {summaries['5a']}")
+    reports["7c"] = meter.finish()
+
+    # (d) the runner: the corpus as one file in 16 MiB shards of 64 KiB blocks
+    part = f"(7d) runner, {RUNNER_SHARD:,d}-byte shards of 64 KiB blocks"
+    meter = PathMeter(part, ("compress", "decode128"))
+    shard = RUNNER_SHARD
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_runner_")
+    procs = []
+    try:
+        src = os.path.join(tmp, "corpus.bin")
+        with open(src, "wb") as f:
+            for data in members.values():
+                f.write(data)
+        with open(src, "rb") as f:
+            whole = f.read()
+        out = os.path.join(tmp, "corpus.lz4")
+        cards = lt.make_mesh().size
+        before = launch_counts()
+        stats, t_comp = wall(lambda: lt.run_sharded_compress(src, out, shard_bytes=shard))
+        comp_launches = launched(before)
+        with open(out, "rb") as f:
+            archive = f.read()
+        n_shards = stats["n_shards"]
+        if stats["compressed_here"] != n_shards or not stats.get("finalized"):
+            fail(f"{part}: first run {stats}")
+        shard_frames = []
+        for k in range(n_shards):
+            with open(os.path.join(out + ".shards", f"shard-{k:07d}.lz4"), "rb") as f:
+                shard_frames.append(f.read())
+        check_launches(f"{part} compress", comp_launches, {"compress": sum(
+            min(len(frame_blocks(f)), cards) for f in shard_frames)})
+        # resume: three shard files and the archive deleted, only they are redone
+        gone = min(3, n_shards)
+        deleted = list(range(0, n_shards, max(n_shards // gone, 1)))[:gone]
+        for k in deleted:
+            os.unlink(os.path.join(out + ".shards", f"shard-{k:07d}.lz4"))
+        os.unlink(out)
+        stats2, t_resume = wall(lambda: lt.run_sharded_compress(src, out, shard_bytes=shard))
+        if (stats2["compressed_here"], stats2["skipped"]) != (gone, n_shards - gone):
+            fail(f"{part}: the resumed run {stats2}, not {gone} compressed and "
+                 f"{n_shards - gone} skipped")
+        with open(out, "rb") as f:
+            if f.read() != archive:
+                fail(f"{part}: the resumed archive differs")
+        back = os.path.join(tmp, "corpus.back")
+        before = launch_counts()
+        _, t_dec = wall(lambda: lt.run_sharded_decompress(out, back))
+        check_launches(f"{part} decompress", launched(before), {"decode128": sum(
+            min(frame_stats(f)[2], cards) for f in shard_frames)})
+        with open(back, "rb") as f:
+            if f.read() != whole:
+                fail(f"{part}: the archive does not decode to the corpus")
+        for k, frame in enumerate(shard_frames):
+            piece = len(whole[k * shard : (k + 1) * shard])
+            for _ in range(2 if k in deleted else 1):
+                meter.compressed(frame, piece)
+            meter.decoded("decode128", frame, piece)
+        rates(f"{part}, {n_shards} shards, mesh every card", total, len(archive), t_comp, t_dec)
+        print(f"    resumed: {gone} shards again, {n_shards - gone} skipped, "
+              f"{t_resume:.2f} s; archive byte-equal")
+        print(f"    phase 3, same run: {summaries['3']}")
+        reports["7d"] = meter.finish()
+
+        # two processes on cuda:0, meeting through gloo, claiming alternate shards
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        out2 = os.path.join(tmp, "two.lz4")
+        work2 = os.path.join(tmp, "two.shards")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", RUNNER_WORKER, HERE, f"localhost:{port}", str(rank), src, out2,
+             str(shard), work2], cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True) for rank in range(2)]
+        outs = [p.communicate(timeout=300)[0] for p in procs]
+        for rank, (p, text) in enumerate(zip(procs, outs)):
+            if p.returncode != 0 or f"WORKER {rank}" not in text:
+                fail(f"(7d) runner process {rank}: exit {p.returncode}: {text[-2000:]}")
+        claims = [int(text.split("WORKER")[1].split()[1]) for text in outs]
+        t_two = time.perf_counter() - t0
+        stats3 = lt.run_sharded_compress(src, out2, shard_bytes=shard, workdir=work2)
+        with open(out2, "rb") as f:
+            if not stats3.get("finalized") or f.read() != archive:
+                fail("(7d) the two processes' archive differs from the single process's")
+        if claims != [-(-n_shards // 2), n_shards // 2]:
+            fail(f"(7d) the two processes claimed {claims} of {n_shards} shards")
+        print(f"  (7d) two processes on cuda:0 (gloo rendezvous): shards {claims[0]} and "
+              f"{claims[1]}, {t_two:.1f} s with start-up; the parent joined them, archive "
+              f"byte-equal to the single process's")
+    finally:
+        for p in procs:
+            p.kill()
+            p.wait()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return reports
+
+
 def profile_lane(members):
     """The largest member through phase 5: (a) 4 MiB independent lane
     blocks, (c) its 1 MiB segments as linked lane frames."""
@@ -1698,21 +1971,25 @@ def main() -> int:
         print(f"  {name}: {r['ms']:.3f} ms on the card, plain {r['plain_ms']:.1f} ms on the "
               f"host CPU, bound {r['bound_ms']:.4f} ms ({r['shape']})")
     phase("phase 3: 64 KiB independent blocks")
-    report, scalar_3 = phase_main(members, scale)
+    report, scalar_3, frames_3 = phase_main(members, scale)
     paths = {"3": report}
     if args.profile:
         profile_round_trip(members)
     phase("phase 4: big blocks and linked frames")
-    reports, scalar, frames_4a = phase_big_and_linked(members)
+    reports, scalar, frames_4a, frames_4b = phase_big_and_linked(members)
     paths.update(reports)
     if args.profile:
         profile_big_and_linked(members)
     phase("phase 5: the lane compressor, big blocks spliced from 32 KiB chunks")
-    paths.update(phase_lane(members, {"3": scalar_3, **scalar}))
+    reports, frames_5a, summary_5a = phase_lane(members, {"3": scalar_3, **scalar})
+    paths.update(reports)
     if args.profile:
         profile_lane(members)
     phase("phase 6: the reference's own entry points: streaming writer and reader, CLI")
     paths.update(phase_streaming(members, frames_4a))
+    phase("phase 7: the device mesh and the resumable sharded runner")
+    paths.update(phase_mesh(members, {"3": frames_3, "4b": frames_4b, "5a": frames_5a},
+                            {"3": scalar_3, "4b": scalar["4b"], "5a": summary_5a}))
     phase("")
 
     rows = []

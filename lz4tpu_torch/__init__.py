@@ -13,7 +13,14 @@ that raises.  ``device="cpu"`` runs each kernel's plain version instead.
   (independent or ``parallel_linked``; ``lane_kernel=True`` for the lane
   compressor, which cuts big blocks into 32 KiB chunks and splices them),
   ``decompress_frame_parallel``, and ``decompress_frames_parallel`` (many
-  frames, linked ones in waves);
+  frames, linked ones in waves); each takes ``mesh=`` in place of
+  ``device=`` to spread a frame's blocks over this process's cards;
+* the mesh and the resumable runner: ``make_mesh`` (every card, or
+  ``devices=[...]``, a device named more than once allowed), ``local_mesh``,
+  ``initialize_distributed`` (the rendezvous of a multi-process run on
+  ``torch.distributed``), ``run_sharded_compress`` and
+  ``run_sharded_decompress`` (a file to a multi-frame archive and back,
+  shards claimed by process, resumable);
 * frames, streaming (the reference crate's API): ``CompressionSettings``
   (an independent-block frame's blocks in one launch a batch;
   ``level()`` adds the host HC parse), ``LZ4FrameReader`` (``read_all``
@@ -55,11 +62,13 @@ from .kernels.decompress import decompress_block_cuda as decompress_block
 from .kernels.decompress_v3 import decompress_blocks_v3
 from .kernels.decompress_v4 import decompress_blocks_v4
 from .kernels.splice import splice_streams
+from .parallel.mesh import initialize_distributed, local_mesh, make_mesh
 from .parallel.pipeline import (
     compress_frame_parallel,
     decompress_frame_parallel,
     decompress_frames_parallel,
 )
+from .parallel.runner import run_sharded_compress, run_sharded_decompress
 from .spec.block import BlockTooBig, DecodeError, Incompressible
 from .spec.hc import compress_block_hc
 from .spec.xxhash32 import XXHash32, xxh32
@@ -78,6 +87,11 @@ __all__ = [
     "compress_frame_parallel",
     "decompress_frame_parallel",
     "decompress_frames_parallel",
+    "make_mesh",
+    "local_mesh",
+    "initialize_distributed",
+    "run_sharded_compress",
+    "run_sharded_decompress",
     "compress_blocks",
     "compress_block_cuda",
     "compress_blocks_128",

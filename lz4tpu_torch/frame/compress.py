@@ -210,7 +210,7 @@ class CompressionSettings:
             if content_hasher is not None:
                 content_hasher.update(batch)
             payloads, lens = _scalar_blocks(host_u8(batch), bs, self._dictionary, False,
-                                            self._acceleration, dev)
+                                            self._acceleration, (dev,))
             mv = memoryview(batch)
             for i, greedy in enumerate(payloads):
                 raw = mv[i * bs : i * bs + int(lens[i])]

@@ -225,7 +225,7 @@ class LZ4FrameReader:
         try:
             outputs = _decode_payloads([p for c, p, _ in blocks[:good] if c],
                                        self.block_maxsize, bytes(dictionary)[-WINDOW_SIZE:],
-                                       self._device)
+                                       (self._device,))
         except DecodeError as e:
             raise CodecError(e.kind) from e
         if good < len(blocks):

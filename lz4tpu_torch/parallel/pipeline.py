@@ -1,11 +1,22 @@
-"""Whole-frame codec on one device: every block of a frame in one launch.
+"""Whole-frame codec: every block of a frame in one launch a device.
 
-Counterpart of ``lz4tpu/parallel/pipeline.py`` for one device (``device``
-takes the place of ``mesh``).  Independent-block frames are
-embarrassingly parallel: the frame's blocks go to the card as one padded
-uint8 tensor (one H2D copy), each kernel runs once over all of them, the
-lengths and statuses come back first and then only the bytes needed (one
-D2H copy), and the host assembles the frame in order.
+Counterpart of ``lz4tpu/parallel/pipeline.py``.  Independent-block frames
+are embarrassingly parallel: the frame's blocks go to the card as one
+padded uint8 tensor (one H2D copy), each kernel runs once over all of them,
+the lengths and statuses come back first and then only the bytes needed
+(one D2H copy), and the host assembles the frame in order.
+
+Every entry point takes ``device`` (one device) or ``mesh`` (a
+``parallel.mesh.Mesh``, this process's cards; not both).  On a mesh the
+frame's blocks are cut into one contiguous range per entry
+(``mesh.shard_bounds``), whole output blocks for the lane compressor; each
+range goes to its card in one H2D copy that also carries what its first
+block may look back at (in a linked frame the 64 KiB of input before the
+range: the JAX package's ring halo), and its kernel is launched on that
+card's stream.  Every range is launched before any range's results are
+read, then the results are joined in frame order, so a frame is
+byte-identical at every mesh size and a decode raises the first failing
+block in frame order.  An entry that gets no block gets no launch.
 
 * ``compress_frame_parallel`` — independent mode is byte-identical to the
   streaming writer (and to the JAX package's ``compress_frame_parallel``)
@@ -64,6 +75,7 @@ from ..spec.table import U32_SLOTS, U32Table, prime_u32_table
 from ..spec.xxhash32 import xxh32
 from ..utils.hashing import make_hasher
 from ..utils.hashing import xxh32 as payload_xxh32
+from .mesh import shard_bounds
 
 
 def _frame_header(flags: Flags, bd: BlockDescriptor, content_size, dictionary_id) -> bytes:
@@ -78,23 +90,19 @@ def _frame_header(flags: Flags, bd: BlockDescriptor, content_size, dictionary_id
     return bytes(header)
 
 
-def _linked_rows(flat, n_blocks: int, block_size: int, dictionary, dev):
-    """Rows ``[the 64 KiB before block i | block i]`` of a linked frame, cut
-    on the device from the flat input with one strided gather, and each
-    row's cursor.  A block whose window is not full (block 0 without a
-    dictionary of at least 64 KiB) is laid out and parsed as an
+def _linked_rows(padded, n_blocks: int, block_size: int, full_first: bool):
+    """Rows ``[the 64 KiB before block i | block i]`` of a linked range, cut
+    on the device with one strided gather from ``padded`` = ``[the 64 KiB
+    before the range | the range's blocks, padded whole]``, and each row's
+    cursor.  A block whose window is not full (the frame's block 0 without
+    a dictionary of at least 64 KiB) is laid out and parsed as an
     independent block at cursor 0: an unprimed table's empty slots alias
     buffer position 0, which is only safe to parse from there."""
     w = WINDOW_SIZE
-    head = torch.zeros(w, dtype=torch.uint8, device=dev)
-    full_first = dictionary is not None and len(dictionary) >= w
-    if full_first:
-        head.copy_(torch.frombuffer(bytearray(dictionary[-w:]), dtype=torch.uint8))
-    padded = torch.cat([head, flat])
     rows = padded.as_strided((n_blocks, w + block_size), (block_size, 1)).contiguous()
     cursors = np.full(n_blocks, w, np.int32)
     if not full_first:
-        rows[0, :block_size] = flat[:block_size]
+        rows[0, :block_size] = padded[w : w + block_size].clone()  # rows may alias padded
         rows[0, block_size:] = 0
         cursors[0] = 0
     return rows, cursors
@@ -108,29 +116,48 @@ def _block_lens(n: int, block_size: int) -> np.ndarray:
     return lens
 
 
-def _scalar_blocks(src, block_size, dictionary, parallel_linked, acceleration, dev):
-    """The frame's blocks through the scalar greedy compressor, one launch:
-    (payloads, lens), a payload ``None`` where the block is stored raw."""
-    n = src.numel()
-    d = len(dictionary or b"")
-    lens = _block_lens(n, block_size)
-    n_blocks = len(lens)
+def _ranges(n_items: int, devs):
+    """``(lo, hi, device)`` of each mesh entry that gets items: an entry
+    with none gets no launch."""
+    return [(lo, hi, dev) for (lo, hi), dev in zip(shard_bounds(n_items, len(devs)), devs)
+            if hi > lo]
 
-    # one H2D copy of the content, padded to whole blocks on the device
-    flat = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
-    flat[:n].copy_(src)
-    rows = flat.view(n_blocks, block_size)
+
+def _scalar_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, acceleration,
+                   dev):
+    """Blocks ``lo:hi`` of the frame through the scalar greedy compressor,
+    one launch on ``dev``, not waited for: the kernel's (out, out_len,
+    status)."""
+    w = WINDOW_SIZE
+    d = len(dictionary or b"")
+    n_blocks = hi - lo
+    lens = lens[lo:hi]
+    a = lo * block_size
+    b = a + int(lens.sum())
     cursors = np.zeros(n_blocks, np.int32)
     prime = np.zeros(n_blocks, np.int32)
     if parallel_linked:
-        rows, cursors = _linked_rows(flat, n_blocks, block_size, dictionary, dev)
+        # one H2D copy of the range behind the 64 KiB of input before it
+        # (every block is at least 64 KiB, so a range past the first has a
+        # full window); the frame's first block is behind the dictionary's tail
+        halo = min(a, w)
+        padded = torch.zeros(w + n_blocks * block_size, dtype=torch.uint8, device=dev)
+        padded[w - halo : w + b - a].copy_(src[a - halo : b])
+        if lo == 0 and d >= w:
+            padded[:w].copy_(torch.frombuffer(bytearray(dictionary[-w:]), dtype=torch.uint8))
+        rows, cursors = _linked_rows(padded, n_blocks, block_size, lo > 0 or d >= w)
         prime = cursors > 0
-    elif d:
-        cursors[:] = d
-        buf = torch.empty((n_blocks, d + block_size), dtype=torch.uint8, device=dev)
-        buf[:, :d] = torch.frombuffer(bytearray(dictionary), dtype=torch.uint8).to(dev)
-        buf[:, d:] = rows
-        rows = buf
+    else:
+        # one H2D copy of the range, padded to whole blocks on the device
+        flat = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
+        flat[: b - a].copy_(src[a:b])
+        rows = flat.view(n_blocks, block_size)
+        if d:
+            cursors[:] = d
+            buf = torch.empty((n_blocks, d + block_size), dtype=torch.uint8, device=dev)
+            buf[:, :d] = torch.frombuffer(bytearray(dictionary), dtype=torch.uint8).to(dev)
+            buf[:, d:] = rows
+            rows = buf
     template = U32Table()
     if d and not parallel_linked:
         # every template position sits behind the cursor (buffer coordinates
@@ -160,42 +187,63 @@ def _scalar_blocks(src, block_size, dictionary, parallel_linked, acceleration, d
         tables,
         round_up(block_size + 16, 16),
     )
-    out_len = out_len.cpu().numpy()
-    status = status.cpu().numpy()
-    stored = status == STATUS_INCOMPRESSIBLE
-    return fetch_rows(out, out_len, ~stored & (lens > 0)), lens
+    return out, out_len, status
 
 
-def _lane_blocks(src, block_size, dictionary, parallel_linked, chunk_windows, dev):
-    """The frame's blocks through the lane compressor, one launch over all
-    chunks: (payloads, lens), a payload ``None`` where the block is stored
-    raw.
+def _scalar_blocks(src, block_size, dictionary, parallel_linked, acceleration, devs):
+    """The frame's blocks through the scalar greedy compressor, one launch
+    on each device of ``devs`` (a mesh's) that gets a range of them:
+    (payloads, lens), a payload ``None`` where the block is stored raw."""
+    lens = _block_lens(src.numel(), block_size)
+    # every range's copy and launch before any range's lengths are read: a
+    # read waits for its card, and the cards after it would wait with it
+    launched = [(lo, hi, _scalar_launch(src, lo, hi, lens, block_size, dictionary,
+                                        parallel_linked, acceleration, dev))
+                for lo, hi, dev in _ranges(len(lens), devs)]
+    payloads = []
+    for lo, hi, (out, out_len, status) in launched:
+        out_len = out_len.cpu().numpy()
+        stored = status.cpu().numpy() == STATUS_INCOMPRESSIBLE
+        payloads += fetch_rows(out, out_len, ~stored & (lens[lo:hi] > 0))
+    return payloads, lens
+
+
+def _lane_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, chunk_windows,
+                 dev):
+    """Output blocks ``lo:hi`` of the frame through the lane compressor,
+    one launch over all their chunks on ``dev``, not waited for: the
+    kernel's (out, out_len, tail_pos, tail_lit).
 
     A chunk's row is cut from one flat source on the device by its base
     offset: the 64 KiB before the chunk, stopped at ``floor``, the first
     byte its block may refer to.  Linked frames: the source is ``[dictionary
-    tail | input]`` and the floor its start.  Independent frames: a window
-    stays inside the chunk's own output block, whose source segment is
-    ``[dictionary tail | block]``, so what lies before the segment is neither
-    primed nor matched."""
-    n = src.numel()
+    tail | input]`` (for a range past the first, the 64 KiB of input before
+    it in the same H2D copy) and the floor its start.  Independent frames:
+    a window stays inside the chunk's own output block, whose source
+    segment is ``[dictionary tail | block]``, so what lies before the
+    segment is neither primed nor matched."""
     chunk = min(block_size, MAX_B)
     cpb = block_size // chunk  # chunks per output block
-    lens = _block_lens(n, block_size)
-    n_blocks = len(lens)
-    if n == 0:
-        return [None], lens
+    n_blocks = hi - lo
+    a = lo * block_size
+    n = int(lens[lo:hi].sum())
     n_chunks = -(-n // chunk)
     idx = np.arange(n_chunks, dtype=np.int64)
     chunk_len = np.minimum(chunk, n - idx * chunk)
     tail = (dictionary or b"")[-WINDOW_SIZE:]
     d = len(tail)
 
-    data = src.to(dev)  # the one H2D copy of the content
-    if d:
-        tail_dev = torch.frombuffer(bytearray(tail), dtype=torch.uint8).to(dev)
+    if parallel_linked and lo:
+        # a range past the first: its one H2D copy starts 64 KiB before it
+        d = WINDOW_SIZE
+        flat = src[a - d : a + n].to(dev)
+    else:
+        data = src[a : a + n].to(dev)  # the one H2D copy of the range
+        if d:
+            tail_dev = torch.frombuffer(bytearray(tail), dtype=torch.uint8).to(dev)
+        if parallel_linked:
+            flat = torch.cat([tail_dev, data]) if d else data
     if parallel_linked:
-        flat = torch.cat([tail_dev, data]) if d else data
         start = d + idx * chunk
         floor = np.zeros(n_chunks, np.int64)
     elif d:
@@ -219,23 +267,49 @@ def _lane_blocks(src, block_size, dictionary, parallel_linked, chunk_windows, de
     else:
         base = start
     cur0 = (start - base).astype(np.int32)
-    out, out_len, tail_pos, tail_lit = compress128(
+    return compress128(
         flat,
         torch.from_numpy(base).to(dev),
         torch.from_numpy(cur0 + chunk_len.astype(np.int32)).to(dev),
         torch.from_numpy(cur0).to(dev),
     )
-    out_len, tail_pos, tail_lit = torch.stack([out_len, tail_pos, tail_lit]).cpu().numpy()
-    streams = fetch_rows(out, out_len, np.ones(n_chunks, bool))
-    tails = list(zip(tail_pos.tolist(), tail_lit.tolist()))
+
+
+def _lane_blocks(src, block_size, dictionary, parallel_linked, chunk_windows, devs):
+    """The frame's blocks through the lane compressor, one launch on each
+    device of ``devs`` that gets a range of output blocks (never a range of
+    chunks: the chunk streams of a block are spliced together): (payloads,
+    lens), a payload ``None`` where the block is stored raw."""
+    n = src.numel()
+    cpb = block_size // min(block_size, MAX_B)
+    lens = _block_lens(n, block_size)
+    if n == 0:
+        return [None], lens
+    launched = [(lo, hi, _lane_launch(src, lo, hi, lens, block_size, dictionary,
+                                      parallel_linked, chunk_windows, dev))
+                for lo, hi, dev in _ranges(len(lens), devs)]
     payloads = []
-    for ob in range(n_blocks):
-        lo, hi = ob * cpb, min((ob + 1) * cpb, n_chunks)
-        payload = streams[lo] if hi - lo == 1 else splice_streams(streams[lo:hi], tails[lo:hi])
-        # the lane kernel has no output cap: a block that did not shrink is
-        # stored raw, as the capped scalar parse would have it
-        payloads.append(payload if len(payload) <= lens[ob] else None)
+    for lo, hi, (out, out_len, tail_pos, tail_lit) in launched:
+        out_len, tail_pos, tail_lit = torch.stack([out_len, tail_pos, tail_lit]).cpu().numpy()
+        streams = fetch_rows(out, out_len, np.ones(len(out_len), bool))
+        tails = list(zip(tail_pos.tolist(), tail_lit.tolist()))
+        for ob in range(hi - lo):
+            c0, c1 = ob * cpb, min((ob + 1) * cpb, len(streams))
+            payload = streams[c0] if c1 - c0 == 1 else splice_streams(streams[c0:c1],
+                                                                      tails[c0:c1])
+            # the lane kernel has no output cap: a block that did not shrink
+            # is stored raw, as the capped scalar parse would have it
+            payloads.append(payload if len(payload) <= lens[lo + ob] else None)
     return payloads, lens
+
+
+def _devices(device, mesh) -> tuple:
+    """The devices a call runs on: the mesh's entries, or ``device``."""
+    if mesh is None:
+        return (resolve_device(device),)
+    if device is not None:
+        raise ValueError("lz4tpu_torch: pass device= or mesh=, not both")
+    return mesh.devices
 
 
 def compress_frame_parallel(
@@ -251,8 +325,10 @@ def compress_frame_parallel(
     dictionary_id: int | None = None,
     lane_kernel: bool = False,
     chunk_windows: bool = True,
+    mesh=None,
 ) -> bytes:
-    """Compress one LZ4 frame with all blocks in one kernel launch.
+    """Compress one LZ4 frame with all blocks in one kernel launch (one a
+    mesh entry with ``mesh``).
 
     Independent mode is byte-identical to the streaming writer
     (``frame.compress.CompressionSettings``) with the same settings,
@@ -279,20 +355,25 @@ def compress_frame_parallel(
     The frame is valid LZ4 for any reader but not the streaming writer's
     bytes, and ``acceleration`` is ignored: leave ``lane_kernel`` off where
     byte parity with the reference encoder matters.
+
+    ``mesh`` (``parallel.mesh.make_mesh``, in place of ``device``) cuts the
+    frame's blocks into one contiguous range per entry, each compressed on
+    its own card; the frame is byte-identical at every mesh size.
     """
     bd = BlockDescriptor.for_block_maxsize(block_size)
     if bd is None:
         raise InvalidBlockSize(str(block_size))
-    dev = resolve_device(device)
+    devs = _devices(device, mesh)
+    dev = devs[0]  # checksums are host work; its kind picks their backend
     src = host_u8(data)
     n = src.numel()
     dictionary = bytes(dictionary) if dictionary is not None else None
     if lane_kernel:
         payloads, lens = _lane_blocks(src, block_size, dictionary, parallel_linked,
-                                      chunk_windows, dev)
+                                      chunk_windows, devs)
     else:
         payloads, lens = _scalar_blocks(src, block_size, dictionary, parallel_linked,
-                                        acceleration, dev)
+                                        acceleration, devs)
 
     # host-side ordered assembly (frame order)
     flags = Flags(
@@ -374,21 +455,29 @@ def decompress_frame_parallel(
     verify_checksums: bool = True,
     dictionary=None,
     lane_kernel: bool | None = None,
+    mesh=None,
 ) -> bytes:
-    """Decompress one LZ4 frame with all independent blocks in one launch.
+    """Decompress one LZ4 frame with all independent blocks in one launch
+    (one a mesh entry with ``mesh``).
 
     A preset dictionary is shared by every block as its prefix.  Frames of
     64 KiB blocks decode on ``decode128``, frames of larger blocks on
     ``decode_big``.  ``lane_kernel=False`` sends both to ``decompress_v4``.
-    ``None`` (auto) and ``True`` are the same here: ``lz4tpu`` resolves
-    ``None`` to the lane decoders on one device, and this function always
-    runs on one device.
-    One linked-block frame goes to the serial streaming reader (many of
-    them decode in parallel through ``decompress_frames_parallel``).
+    ``None`` (auto) and ``True`` are the same here, on one device or a
+    mesh: ``lz4tpu`` keeps multi-device meshes off its lane decoders only
+    for the speed of its CPU interpret mode.
+
+    ``mesh`` (in place of ``device``) cuts the compressed blocks into one
+    contiguous range per entry, each decoded on its own card; the first
+    failing block in frame order raises, at every mesh size.  One
+    linked-block frame goes to the serial streaming reader, on the mesh's
+    first device (many of them decode in parallel through
+    ``decompress_frames_parallel``).
     """
     from ..frame.decompress import LZ4FrameReader
 
-    dev = resolve_device(device)
+    devs = _devices(device, mesh)
+    dev = devs[0]
     frame = bytes(frame)
     dictionary = bytes(dictionary or b"")[-WINDOW_SIZE:]
     reader = LZ4FrameReader(frame, engine=dev)
@@ -400,32 +489,41 @@ def decompress_frame_parallel(
         check = _block_checksum_check(dev)
         for _, payload, checksum in blocks:
             check(payload, checksum)
-    return _decode_independent(reader, blocks, expected_sum, dictionary, dev,
+    return _decode_independent(reader, blocks, expected_sum, dictionary, devs,
                                verify_checksums, lane_kernel)
 
 
-def _decode_payloads(payloads, block_maxsize, dictionary, dev, lane_kernel=None):
+def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None):
     """The compressed payloads of an independent frame, decoded in one
-    launch; raises the first failing block's error in frame order (the
-    decoder's ``DecodeError``, or ``BlockSizeOverflow`` for a block that
-    decoded past ``block_maxsize``)."""
+    launch on each device of ``devs`` (a mesh's) that gets a range of them;
+    raises the first failing block's error in frame order (the decoder's
+    ``DecodeError``, or ``BlockSizeOverflow`` for a block that decoded past
+    ``block_maxsize``)."""
     if not payloads:
         return []
     if lane_kernel is False:
         decoder = decode_v4
     else:
         decoder = decode128 if block_maxsize <= MAX_BLOCK else decode_big
-    comp, comp_len = pack_rows(payloads, dev)
-    prefix, prefix_len = pack_prefixes(
-        [dictionary] * len(payloads) if dictionary else None, len(payloads), dev
-    )
-    out, out_len, status = decoder(comp, comp_len, prefix, prefix_len, block_maxsize)
-    out_len = out_len.cpu().numpy()
-    status = status.cpu().numpy()
-    bad = check_decoded(status, out_len, block_maxsize)
+    # every range gets the output capacity of one launch over all the
+    # payloads, so that a hostile block stops where it would stop there
+    out_capacity = round_up(block_maxsize + round_up(max(map(len, payloads)), 16), 16)
+    launched = []
+    for lo, hi, dev in _ranges(len(payloads), devs):
+        comp, comp_len = pack_rows(payloads[lo:hi], dev)
+        prefix, prefix_len = pack_prefixes([dictionary] * (hi - lo) if dictionary else None,
+                                           hi - lo, dev)
+        launched.append(decoder(comp, comp_len, prefix, prefix_len, block_maxsize,
+                                out_capacity))
+    # every range launched before the first lengths are read
+    results = [(out, out_len.cpu().numpy(), status.cpu().numpy())
+               for out, out_len, status in launched]
+    bad = check_decoded(np.concatenate([status for _, _, status in results]),
+                        np.concatenate([out_len for _, out_len, _ in results]), block_maxsize)
     if bad is not None:
         raise bad[1]
-    return fetch_rows(out, out_len, np.ones(len(payloads), bool))
+    return [row for out, out_len, _ in results
+            for row in fetch_rows(out, out_len, np.ones(len(out_len), bool))]
 
 
 def _join_blocks(blocks, outputs) -> bytes:
@@ -435,14 +533,15 @@ def _join_blocks(blocks, outputs) -> bytes:
     return b"".join(next(outputs) if compressed else payload for compressed, payload, _ in blocks)
 
 
-def _decode_independent(reader, blocks, expected_sum, dictionary, dev, verify_checksums,
+def _decode_independent(reader, blocks, expected_sum, dictionary, devs, verify_checksums,
                         lane_kernel=None) -> bytes:
-    """The scanned blocks of an independent frame, decoded in one launch."""
+    """The scanned blocks of an independent frame, decoded in one launch a
+    device of ``devs``."""
     outputs = _decode_payloads([p for c, p, _ in blocks if c], reader.block_maxsize,
-                               dictionary, dev, lane_kernel)
+                               dictionary, devs, lane_kernel)
     result = _join_blocks(blocks, outputs)
     if verify_checksums and reader.flags.content_checksum and expected_sum is not None:
-        _check_content(result, expected_sum, dev)
+        _check_content(result, expected_sum, devs[0])
     return result
 
 
@@ -468,6 +567,7 @@ def decompress_frames_parallel(
     device=None,
     verify_checksums: bool = True,
     dictionaries=None,
+    mesh=None,
 ) -> list[bytes]:
     """Decode many LZ4 frames at once — the parallel answer to linked-block
     frames, whose blocks form a serial chain within a frame (block ``i``
@@ -487,10 +587,15 @@ def decompress_frames_parallel(
     ``BlockSizeOverflow``; content checksums are checked per frame at the
     end.  Independent-block frames go through the one-launch decode of
     ``decompress_frame_parallel``.
+
+    With ``mesh`` (in place of ``device``) the independent frames decode
+    over the mesh, as in ``decompress_frame_parallel``, and the waves run
+    on its first device, as the JAX package's run on one.
     """
     from ..frame.decompress import LZ4FrameReader
 
-    dev = resolve_device(device)
+    devs = _devices(device, mesh)
+    dev = devs[0]
     frames = [bytes(f) for f in frames]
     if dictionaries is None:
         dictionaries = [None] * len(frames)
@@ -505,7 +610,7 @@ def decompress_frames_parallel(
         reader = LZ4FrameReader(frame, engine=dev)
         blocks, expected = _scan_frame(reader, check)
         if reader.flags.independent_blocks:
-            results[fi] = _decode_independent(reader, blocks, expected, dictionaries[fi], dev,
+            results[fi] = _decode_independent(reader, blocks, expected, dictionaries[fi], devs,
                                               verify_checksums)
         else:
             linked.append((fi, reader, blocks, expected))

@@ -38,6 +38,7 @@ def test_import_leaves_jax_and_lz4tpu_out():
     code = (
         "import sys, lz4tpu_torch, lz4tpu_torch.cli.dolz4, lz4tpu_torch.cli.delz4\n"
         "import lz4tpu_torch.interop, lz4tpu_torch.spec.hc\n"
+        "import lz4tpu_torch.parallel.mesh, lz4tpu_torch.parallel.runner\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lz4tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -91,6 +92,12 @@ def _entry_points(tmp_path):
         "delz4": lambda: delz4.main([str(tmp_path / "in.lz4"), str(tmp_path / "out")]),
         "dolz4_parallel": lambda: dolz4.main([str(tmp_path / "in"), str(tmp_path / "out.lz4"),
                                               "--engine", "cuda-parallel"]),
+        "make_mesh": lambda: lt.make_mesh(),
+        "local_mesh": lambda: lt.local_mesh(),
+        "run_sharded_compress": lambda: lt.run_sharded_compress(tmp_path / "in",
+                                                                tmp_path / "r.lz4"),
+        "run_sharded_decompress": lambda: lt.run_sharded_decompress(tmp_path / "in.lz4",
+                                                                    tmp_path / "r.out"),
     }
 
 
@@ -102,7 +109,8 @@ def _entry_points(tmp_path):
     "decompress_frames_parallel", "compress_frame_parallel_linked",
     "compress_frame_parallel_lane", "compress_blocks_128", "compress_block",
     "decompress_block", "LZ4FrameReader", "CompressionSettings_level",
-    "CompressionSettings_linked", "dolz4", "delz4", "dolz4_parallel",
+    "CompressionSettings_linked", "dolz4", "delz4", "dolz4_parallel", "make_mesh",
+    "local_mesh", "run_sharded_compress", "run_sharded_decompress",
 ]))
 def test_default_device_is_cuda_and_raises_without_it(name, monkeypatch, tmp_path):
     fn = _entry_points(tmp_path)[name]
