@@ -91,9 +91,21 @@ Phases, in order; any mismatch or exception exits non-zero:
    Frames and archives must be byte-equal to the phases they mirror and to
    each other, and a call must launch each kernel once on every mesh entry
    that gets work.  On one card this measures the sharding's cost, not
-   scaling.
+   scaling;
+8. the host engine (``engine("native")``, the C++ codec built by ``c++``),
+   over the same corpus: (a) ``CompressionSettings().level(9)`` at 4 MiB
+   independent blocks over dickens on ``"cuda"`` (compress.cu's greedy
+   payloads, the native HC parse) and on ``"native"``, frames equal, no
+   larger than 4a's and read back on ``"cuda"`` (decode_big), and the
+   native HC parse beside ``spec.hc`` on a 256 KiB head; (b) the default
+   writer and reader on ``"native"`` with ``threads(1)`` and
+   ``threads(0)``, frames equal to 6a's; (c) 6c's linked frame on
+   ``"native"``, equal to 6c's; (d) ``dolz4``/``delz4 --engine native``
+   round trips, compared with ``cmp``.  Host rates, printed with the
+   host's CPU and the card's name and power limit beside the same run's
+   device rates; the native paths must launch no kernel.
 
-In phases 3 to 7 outputs must be byte-equal to the inputs, and every
+In phases 3 to 8 outputs must be byte-equal to the inputs, and every
 kernel of a path must have been launched on it: the launch counts are set
 to 0 before each path and read after it.
 
@@ -184,6 +196,11 @@ def phase_env():
     t0 = time.perf_counter()
     build.load()
     print(f"kernel build: {time.perf_counter() - t0:.2f} s (nvcc {build.build_seconds:.2f} s)")
+    from lz4tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load()
+    print(f"native engine build (c++) and load: {time.perf_counter() - t0:.2f} s")
     log = build.BUILD_DIR / "build.log"
     if log.exists():
         for line in log.read_text().splitlines():
@@ -1466,6 +1483,23 @@ def launched(before):
     return {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
 
 
+def read(path) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def run_cli(part, tmp, tool, *argv) -> None:
+    """``python3 -m lz4tpu_torch.cli.<tool> argv -v`` from the checkout's
+    root; prints its rate line (paths shown relative to ``tmp``)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"lz4tpu_torch.cli.{tool}", *argv, "-v"],
+                       cwd=HERE, capture_output=True, text=True, timeout=300)
+    if r.returncode != 0:
+        fail(f"{part} {tool} {' '.join(argv)}: exit {r.returncode}: {r.stderr[-2000:]}")
+    print(f"    {tool} {' '.join(a.replace(tmp + os.sep, '') for a in argv)}: "
+          f"{r.stderr.strip()} ({time.perf_counter() - t0:.1f} s with start-up)")
+
+
 def read_blocks(frame, dictionary=b""):
     """A frame through the streaming reader's per-block loop (``decode_block``)."""
     import lz4tpu_torch as lt
@@ -1485,7 +1519,9 @@ def phase_streaming(members, frames_4a):
     (b) the same on one member at 64 KiB blocks with block checksums and a
     64 KiB dictionary, and ``into_read().read(n)`` in odd pieces; (c) one
     member as a linked frame (the per-block writer and reader); (d) the
-    CLI as subprocesses.  Returns one report per part."""
+    CLI as subprocesses.  Returns one report per part, and what phase 8
+    holds its host engine's paths against: 6a's frames and rates, 6c's
+    frame and rates."""
     import functools
     import tempfile
 
@@ -1532,9 +1568,9 @@ def phase_streaming(members, frames_4a):
         print(f"    {name:8s} {nc + ns:3d} blocks; batched launches {counts['batched']}, "
               f"per block {counts['per block']}")
     n_out = sum(map(len, batched_frames.values()))
-    for path in ("batched", "per block"):
-        rates(f"(6a) 4 MiB independent blocks, {path}", total, n_out,
-              secs[path, "comp"], secs[path, "dec"])
+    summary_6a = {path: rates(f"(6a) 4 MiB independent blocks, {path}", total, n_out,
+                              secs[path, "comp"], secs[path, "dec"])
+                  for path in ("batched", "per block")}
     print("  (6a) batched and per-block frames equal to each other and to phase 4a's")
     reports["6a"] = meter.finish()
 
@@ -1592,9 +1628,11 @@ def phase_streaming(members, frames_4a):
     meter.compressed(frame, len(data) + 65536 * (len(blocks) - 1))  # rows carry windows
     meter.decoded("decode_big", frame, len(data),
                   prefix_bytes=sum(65536 for k, (c, _, _) in enumerate(blocks) if c and k))
-    rates(f"(6c) {name} as one linked frame of {len(blocks)} blocks of 4 MiB", len(data),
-          len(frame), t_comp, t_dec)
+    summary_6c = rates(f"(6c) {name} as one linked frame of {len(blocks)} blocks of 4 MiB",
+                       len(data), len(frame), t_comp, t_dec)
     reports["6c"] = meter.finish()
+    mirror = {"6a": batched_frames, "6a rates": summary_6a["batched"], "6c": frame,
+              "6c rates": summary_6c}
 
     # (d) the CLI as subprocesses on the card, one member in a temporary directory
     meter = PathMeter("(6d) CLI", ("compress128", "compress"))
@@ -1609,17 +1647,7 @@ def phase_streaming(members, frames_4a):
             f.write(data[: 256 << 10])
 
         def cli(tool, *argv):
-            t0 = time.perf_counter()
-            r = subprocess.run([sys.executable, "-m", f"lz4tpu_torch.cli.{tool}", *argv, "-v"],
-                               cwd=HERE, capture_output=True, text=True, timeout=300)
-            if r.returncode != 0:
-                fail(f"(6d) {tool} {' '.join(argv)}: exit {r.returncode}: {r.stderr[-2000:]}")
-            print(f"    {tool} {' '.join(a.replace(tmp + os.sep, '') for a in argv)}: "
-                  f"{r.stderr.strip()} ({time.perf_counter() - t0:.1f} s with start-up)")
-
-        def read(path):
-            with open(path, "rb") as f:
-                return f.read()
+            run_cli("(6d)", tmp, tool, *argv)
 
         cases = (("cuda", src, [], batched_frames[name]),
                  ("cuda-parallel", src, [], frames_4a[name]),
@@ -1650,7 +1678,7 @@ def phase_streaming(members, frames_4a):
     print(f"  (6d) dolz4/delz4 on {name} ({len(data):,d} B): engines cuda, cuda-parallel, "
           f"cuda-parallel --lane-kernel and --level 9 round-trip; scalar frames equal to 6a's")
     reports["6d"] = meter.finish()
-    return reports
+    return reports, mirror
 
 
 RUNNER_WORKER = """
@@ -1902,6 +1930,160 @@ def phase_mesh(members, frames, summaries):
     return reports
 
 
+def host_cpu() -> str:
+    """The host's CPU (the first processor's vendor, family, model, model
+    name and clock, as /proc/cpuinfo gives them) and count, printed beside
+    every host rate."""
+    keys = ("vendor_id", "cpu family", "model", "model name", "cpu MHz")
+    found = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                key, _, value = line.partition(":")
+                if not line.strip():
+                    break
+                if key.strip() in keys:
+                    found[key.strip()] = value.strip()
+    except OSError:
+        pass
+    desc = ", ".join(f"{k} {found[k]}" for k in keys if k in found) or "no /proc/cpuinfo"
+    return f"{desc}; os.cpu_count() {os.cpu_count()}"
+
+
+def phase_native(members, frames_4a, mirror, smi):
+    """The host engine on the card's machine: (8a) ``level(9)`` at 4 MiB
+    independent blocks over dickens on ``"cuda"`` (greedy payloads from
+    compress.cu, the native HC parse) and on ``"native"``: frames equal, no
+    larger than 4a's, read back on ``"cuda"`` (decode_big); the native HC
+    parse beside ``spec.hc`` on a 256 KiB head; (8b) the default writer and
+    reader over the corpus on ``"native"`` with ``threads(1)`` and
+    ``threads(0)``, frames equal to 6a's; (8c) 6c's linked frame on
+    ``"native"``; (8d) ``dolz4``/``delz4 --engine native``.  Host rates,
+    printed beside the same run's device rates (``mirror``: phase 6's
+    frames and rates).  The native paths must launch no kernel.  Returns
+    8a's report."""
+    import shutil
+    import tempfile
+
+    import lz4tpu_torch as lt
+    from lz4tpu_torch import native
+    from lz4tpu_torch.spec.hc import compress_block_hc as spec_compress_block_hc
+
+    print(f"  host rates on {host_cpu()}; card {smi}")
+    names = list(members)
+    total = sum(map(len, members.values()))
+
+    def native_only(part, fn):
+        before = launch_counts()
+        res = wall(fn)
+        if launched(before):
+            fail(f"{part}: the native engine launched {launched(before)}")
+        return res
+
+    # (a) level 9 at 4 MiB independent blocks, on "cuda" and on "native"
+    name = names[0]
+    data = members[name]
+    meter = PathMeter(f"(8a) level 9, {name}, cuda", ("compress", "decode_big"))
+    frame_cuda, t_cuda = wall(lambda: lt.CompressionSettings().level(9).compress_bytes(data))
+    meter.compressed(frames_4a[name], len(data))  # compress.cu made 4a's greedy payloads
+    back = lt.decompress_frame(frame_cuda)
+    frame_native, t_native = native_only("(8a)", lambda: lt.CompressionSettings().engine(
+        "native").level(9).compress_bytes(data))
+    back_native = lt.decompress_frame(frame_native)
+    for frame in (frame_cuda, frame_native):
+        meter.decoded("decode_big", frame, len(data))
+    report = meter.finish()
+    if frame_cuda != frame_native:
+        fail(f"(8a) {name}: the level-9 frames of cuda and native differ")
+    if len(frame_cuda) > len(frames_4a[name]):
+        fail(f"(8a) {name}: the level-9 frame is larger than 4a's greedy frame")
+    if not back == back_native == data:
+        fail(f"(8a) {name}: the level-9 frames do not read back on cuda")
+    blocks = [data[i : i + (4 << 20)] for i in range(0, len(data), 4 << 20)]
+    _, t_hc = wall(lambda: [native.compress_block_hc(b, level=9) for b in blocks])
+    head = data[: 256 << 10]
+    hc_native, t_head = wall(lambda: native.compress_block_hc(head, level=9))
+    hc_spec, t_head_spec = wall(lambda: spec_compress_block_hc(head, level=9))
+    if hc_native != hc_spec:
+        fail("(8a) the native and spec.hc level-9 parses of the head differ")
+    mb = len(data) / 1e6
+    print(f"  (8a) {name} at level 9, {len(blocks)} blocks of 4 MiB: {len(frame_cuda):,d} B "
+          f"against 4a's greedy {len(frames_4a[name]):,d} B; writer on cuda {mb / t_cuda:.1f} "
+          f"MB/s, on native {mb / t_native:.1f} MB/s; frames equal, read back on cuda")
+    print(f"  (8a) the HC parse alone: native {mb / t_hc:.2f} MB/s over {name}'s blocks, one "
+          f"thread; on a {len(head):,d} B head native {len(head) / t_head / 1e6:.2f} MB/s, "
+          f"spec.hc (the Python parse that level() ran before) "
+          f"{len(head) / t_head_spec / 1e6:.3f} MB/s; equal")
+
+    # (b) the default writer and reader over the corpus, threads(1) and threads(0)
+    saved = os.environ.get("LZ4TPU_HOST_THREADS")
+    try:
+        for threads in (1, 0):
+            if threads:
+                os.environ["LZ4TPU_HOST_THREADS"] = str(threads)
+            else:
+                os.environ.pop("LZ4TPU_HOST_THREADS", None)
+            settings = lt.CompressionSettings().engine("native").threads(threads)
+            t_comp = t_dec = 0.0
+            n_out = 0
+            for name, data in members.items():
+                frame, dt = native_only("(8b)", lambda: settings.compress_bytes(data))
+                t_comp += dt
+                if frame != mirror["6a"][name]:
+                    fail(f"(8b) threads({threads}): {name}'s frame differs from 6a's")
+                back, dt = native_only("(8b)", lambda: lt.decompress_frame(frame,
+                                                                           engine="native"))
+                t_dec += dt
+                if back != data:
+                    fail(f"(8b) threads({threads}): {name} does not round-trip")
+                n_out += len(frame)
+            rates(f"(8b) 4 MiB independent blocks, native, threads({threads}) "
+                  f"({native.host_threads(threads)} threads)", total, n_out,
+                  t_comp, t_dec)
+    finally:
+        if saved is None:
+            os.environ.pop("LZ4TPU_HOST_THREADS", None)
+        else:
+            os.environ["LZ4TPU_HOST_THREADS"] = saved
+    print(f"    6a, batched on cuda, same run: {mirror['6a rates']}; frames equal to 6a's")
+
+    # (c) 6c's linked frame on native
+    name = names[0]
+    data = members[name]
+    frame, t_comp = native_only("(8c)", lambda: lt.CompressionSettings().engine("native")
+                                .independent_blocks(False).compress_bytes(data))
+    if frame != mirror["6c"]:
+        fail(f"(8c) {name}: the linked frame differs from 6c's")
+    back, t_dec = native_only("(8c)", lambda: lt.decompress_frame(frame, engine="native"))
+    if back != data:
+        fail(f"(8c) {name}: the linked frame does not round-trip")
+    rates(f"(8c) {name} as one linked frame, native", len(data), len(frame), t_comp, t_dec)
+    print(f"    6c, per block on cuda, same run: {mirror['6c rates']}; frame equal to 6c's")
+
+    # (d) the CLI on native, as subprocesses; compared with cmp
+    name = names[-1]
+    data = members[name]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_native_")
+    try:
+        src = os.path.join(tmp, name)
+        with open(src, "wb") as f:
+            f.write(data)
+        out = os.path.join(tmp, "native.lz4")
+        run_cli("(8d)", tmp, "dolz4", src, out, "--engine", "native")
+        run_cli("(8d)", tmp, "delz4", out, out + ".back", "--engine", "native")
+        cmp = shutil.which("cmp")
+        if not (subprocess.run([cmp, "-s", src, out + ".back"]).returncode == 0 if cmp
+                else read(src) == read(out + ".back")):
+            fail("(8d) dolz4/delz4 --engine native: the output differs from the input")
+        if read(out) != mirror["6a"][name]:
+            fail("(8d) dolz4 --engine native: the frame differs from 6a's")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"  (8d) dolz4/delz4 --engine native on {name} ({len(data):,d} B) round-trip "
+          f"({'cmp' if cmp else 'compared in Python: no cmp'}); the frame equal to 6a's")
+    return {"8a": report}
+
+
 def profile_lane(members):
     """The largest member through phase 5: (a) 4 MiB independent lane
     blocks, (c) its 1 MiB segments as linked lane frames."""
@@ -1986,10 +2168,13 @@ def main() -> int:
     if args.profile:
         profile_lane(members)
     phase("phase 6: the reference's own entry points: streaming writer and reader, CLI")
-    paths.update(phase_streaming(members, frames_4a))
+    reports, mirror_6 = phase_streaming(members, frames_4a)
+    paths.update(reports)
     phase("phase 7: the device mesh and the resumable sharded runner")
     paths.update(phase_mesh(members, {"3": frames_3, "4b": frames_4b, "5a": frames_5a},
                             {"3": scalar_3, "4b": scalar["4b"], "5a": summary_5a}))
+    phase("phase 8: the host engine (native): level(), threads(n), linked frames, CLI")
+    paths.update(phase_native(members, frames_4a, mirror_6, smi))
     phase("")
 
     rows = []

@@ -8,6 +8,9 @@ hand for Hopper (``csrc/``, built by ``nvcc`` at first use, see
 
 Every entry point takes ``device=None``, meaning ``"cuda"``; without a card
 that raises.  ``device="cpu"`` runs each kernel's plain version instead.
+The streaming API has a third engine, ``"native"``: the host's C++ block
+codec, HC parse and xxHash32 (``lz4tpu_torch.native``, built by ``c++``
+into ``_build/`` at first use), which needs no card.
 
 * frames, whole-frame on the device: ``compress_frame_parallel``
   (independent or ``parallel_linked``; ``lane_kernel=True`` for the lane
@@ -22,10 +25,13 @@ that raises.  ``device="cpu"`` runs each kernel's plain version instead.
   ``run_sharded_decompress`` (a file to a multi-frame archive and back,
   shards claimed by process, resumable);
 * frames, streaming (the reference crate's API): ``CompressionSettings``
-  (an independent-block frame's blocks in one launch a batch;
-  ``level()`` adds the host HC parse), ``LZ4FrameReader`` (``read_all``
-  of an independent frame in one launch), ``LZ4FrameIoReader``
-  (``into_read``), ``decompress_frame``;
+  (engines ``"cuda"``, ``"cpu"`` and ``"native"``: an independent-block
+  frame's blocks in one launch a batch on a device, on ``threads(n)``
+  threads on ``"native"``; ``level()`` adds the HC parse on the host, the
+  native engine's but on ``"cpu"``), ``LZ4FrameReader`` (``read_all`` of
+  an independent frame in one launch, or on a thread pool on
+  ``"native"``), ``LZ4FrameIoReader`` (``into_read``),
+  ``decompress_frame``;
 * the crate root's block codec: ``compress_block`` and
   ``decompress_block`` (the reference's signatures, ``device=None``
   meaning ``"cuda"``), ``compress_block_hc`` (host parse), ``XXHash32``

@@ -5,9 +5,8 @@ with ctypes (no PyTorch headers, so a build takes seconds).  Every
 ``csrc/*.cu`` compiles to an object in its own ``nvcc`` process, all
 started together, and one ``nvcc -shared`` links them.  The library goes
 to ``lz4tpu_torch/_build/`` (ignored by git), keyed by a hash of the
-sources and flags, and is built at first use.
-
-The same library carries the host-side xxHash32 (``csrc/xxh32.cu``).
+sources and flags, and is built at first use.  The host's own C code
+(xxHash32, the native block codec) is ``native/``, built by ``c++``.
 """
 
 from __future__ import annotations
@@ -130,11 +129,6 @@ _SIGNATURES = {
     # src, base, n, cur0, out, out_stride, out_len, tail_pos, tail_lit, nrows,
     # hashlog, strict, stream
     "lz4t_compress128": (_I, [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I, _I, _I, _P]),
-    "lz4t_xxh32": (ctypes.c_uint32, [_P, ctypes.c_uint64, ctypes.c_uint32]),
-    "lz4t_xxh32_state_size": (_I, []),
-    "lz4t_xxh32_init": (None, [_P, ctypes.c_uint32]),
-    "lz4t_xxh32_update": (None, [_P, _P, ctypes.c_uint64]),
-    "lz4t_xxh32_digest": (ctypes.c_uint32, [_P, ctypes.c_uint32]),
 }
 
 

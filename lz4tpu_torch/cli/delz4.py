@@ -3,8 +3,10 @@
 The port's counterpart of ``lz4tpu/cli/delz4.py`` (reference
 ``examples/delz4.rs``).  Engines: ``cuda`` (the default:
 ``decompress_frame`` on the card, an independent frame's blocks in one
-launch), ``cpu`` (the same on the kernels' plain versions),
-``cuda-parallel`` and ``cpu-parallel`` (``decompress_frame_parallel``).
+launch), ``cpu`` (the same on the kernels' plain versions), ``native``
+(the host's C++ decoder, an independent frame's blocks on a pool of
+threads; no card needed), ``cuda-parallel`` and ``cpu-parallel``
+(``decompress_frame_parallel``).
 
     python3 -m lz4tpu_torch.cli.delz4 in.lz4 out [--engine cuda] [-v]
 """
@@ -23,7 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("input", help="input .lz4 file ('-' for stdin)")
     p.add_argument("output", help="output file ('-' for stdout)")
     p.add_argument("--engine", default="cuda", choices=ENGINES,
-                   help="cuda/cpu: the streaming reader; *-parallel: decompress_frame_parallel")
+                   help="cuda/cpu/native: the streaming reader; *-parallel: "
+                        "decompress_frame_parallel")
     p.add_argument("--dictionary", help="preset dictionary file")
     p.add_argument("-v", "--verbose", action="store_true")
     return p

@@ -4,9 +4,11 @@ The port's counterpart of ``lz4tpu/cli/dolz4.py`` (reference
 ``examples/dolz4.rs``), flag for flag.  Engines: ``cuda`` (the default:
 ``CompressionSettings`` on the card, an independent frame's blocks in one
 launch a batch), ``cpu`` (the same on the kernels' plain versions),
-``cuda-parallel`` and ``cpu-parallel`` (``compress_frame_parallel``: the
-whole frame in one launch, ``--linked-blocks`` as ``parallel_linked``,
-``--lane-kernel`` for the lane compressor).
+``native`` (the host's C++ codec, an independent frame's blocks on a pool
+of threads; no card needed), ``cuda-parallel`` and ``cpu-parallel``
+(``compress_frame_parallel``: the whole frame in one launch,
+``--linked-blocks`` as ``parallel_linked``, ``--lane-kernel`` for the lane
+compressor).
 
     python3 -m lz4tpu_torch.cli.dolz4 in out.lz4 [--engine cuda] [-v]
 """
@@ -17,7 +19,7 @@ import argparse
 import sys
 import time
 
-ENGINES = ["cuda", "cpu", "cuda-parallel", "cpu-parallel"]
+ENGINES = ["cuda", "cpu", "native", "cuda-parallel", "cpu-parallel"]
 
 
 def read_input(path: str) -> bytes:
@@ -41,8 +43,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("input", help="input file ('-' for stdin)")
     p.add_argument("output", help="output file ('-' for stdout)")
     p.add_argument("--engine", default="cuda", choices=ENGINES,
-                   help="cuda/cpu: the streaming writer; *-parallel: the whole frame in one "
-                        "launch (compress_frame_parallel)")
+                   help="cuda/cpu/native: the streaming writer; *-parallel: the whole frame in "
+                        "one launch (compress_frame_parallel)")
     p.add_argument("--block-size", type=int, default=4 * 1024 * 1024,
                    help="64KiB/256KiB/1MiB/4MiB (bytes)")
     p.add_argument("--linked-blocks", action="store_true",
@@ -66,7 +68,7 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device, parallel = args.engine.removesuffix("-parallel"), args.engine.endswith("-parallel")
     if parallel and args.level:
-        raise SystemExit("--level is a host-parse feature; use engine cuda or cpu")
+        raise SystemExit("--level is a host-parse feature; use engine cuda, cpu or native")
     if args.lane_kernel and not parallel:
         raise SystemExit("--lane-kernel needs engine cuda-parallel or cpu-parallel")
     data = read_input(args.input)

@@ -6,35 +6,45 @@ header emission with the xxh32 header checksum, dictionary priming, the
 incompressible fallback capping output at input size, independent-vs-linked
 table/window maintenance, and the EndMark + content checksum trailer.
 
-The block engine is ``"cuda"`` (default), ``"cpu"`` (the kernels' plain
-versions), a ``torch.device``, or a callable with the spec's
-``compress_block`` contract.  On a device engine an independent-block
-frame is written in batches: the stream is read ``BATCH_BYTES`` at a time
-(whole blocks), and every block of a batch goes through one launch of the
-greedy compressor (``parallel.pipeline._scalar_blocks``), so
-``compress(reader, writer)`` streams an input of any size.  The frame is
-byte-identical to the per-block loop.  Linked frames, whose encoder table
-chains from block to block, and callable engines take the per-block loop.
-The JAX package's ``threads(n)`` has no counterpart: the batch takes its
-place.
+The block engine is one of three, or a callable with the spec's
+``compress_block`` contract:
 
-``level(v)`` adds the high-compression parse (``spec.hc``), which runs on
-the host: each block's greedy payload (from the batch, or from the loop)
-caps the HC parse, and the smaller payload wins.
+* ``"cuda"`` (the default) or a ``torch.device``: an independent-block
+  frame is written in batches, the stream read ``BATCH_BYTES`` at a time
+  (whole blocks), every block of a batch through one launch of the greedy
+  compressor (``parallel.pipeline._scalar_blocks``), so
+  ``compress(reader, writer)`` streams an input of any size;
+* ``"cpu"``: the same batches on the kernels' plain versions;
+* ``"native"``: the host's C++ block codec (``lz4tpu_torch.native``), no
+  card and no ``nvcc`` needed; an independent-block frame's blocks run on
+  a pool of ``threads(n)`` threads (the codec releases the interpreter
+  lock), each from its own copy of the template table.
+
+Every way writes the frame the per-block loop writes, byte for byte.
+Linked frames, whose encoder table chains from block to block, and
+callable engines take the per-block loop.
+
+``level(v)`` adds the high-compression parse, on the host: the native
+engine's on every engine but ``"cpu"``, whose is the plain ``spec.hc``.
+Each block's greedy payload caps the HC parse, and the smaller payload
+wins.
 """
 
 from __future__ import annotations
 
 import functools
 import io
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 
+from .. import native
 from ..parallel.pipeline import _scalar_blocks
 from ..runtime import host_u8, resolve_device
 from ..spec.block import Incompressible
-from ..spec.hc import compress_block_hc
+from ..spec.hc import compress_block_hc as spec_compress_block_hc
 from ..spec.table import U32Table, prime_u32_table
 from ..spec.xxhash32 import xxh32
-from ..utils.hashing import engine_hash_device, make_hasher
+from ..utils.hashing import make_hasher
 from ..utils.hashing import xxh32 as payload_xxh32
 from .errors import InvalidBlockSize
 from .header import INCOMPRESSIBLE, MAGIC, WINDOW_SIZE, BlockDescriptor, Flags
@@ -46,14 +56,17 @@ BATCH_BYTES = 256 << 20
 
 
 def _resolve_engine(name):
-    """Map an engine to (``compress_block`` callable, device): the device
-    is ``None`` for a callable engine, which the batches cannot take."""
+    """Map an engine to (``compress_block`` callable, device, checksum
+    backend): the device is ``None`` for ``"native"`` and a callable, which
+    the batches cannot take."""
     if callable(name):
-        return name, None
+        return name, None, "native"
+    if name == "native":
+        return native.compress_block, None, "native"
     from ..kernels.compress import compress_block_cuda
 
     dev = resolve_device(name)
-    return functools.partial(compress_block_cuda, device=dev), dev
+    return functools.partial(compress_block_cuda, device=dev), dev, dev.type
 
 
 class CompressionSettings:
@@ -74,6 +87,7 @@ class CompressionSettings:
         self._acceleration = 1
         self._level = None
         self._engine = "cuda"
+        self._threads = 0
 
     # -- builder setters (reference naming) ---------------------------------
 
@@ -117,17 +131,28 @@ class CompressionSettings:
 
     def level(self, v: int | None) -> "CompressionSettings":
         """High-compression level.  ``None``/``1`` = the reference's greedy
-        parse; ``>= 2`` = hash-chain + lazy parse (``spec/hc.py``, on the
-        host) with search depth ``2**(level-1)``.  Every block is compressed
-        with both parses and the smaller payload wins, so levelled output is
-        never larger than the greedy output."""
+        parse; ``>= 2`` = hash-chain + lazy parse on the host (the native
+        engine's; ``spec/hc.py`` on the ``"cpu"`` engine) with search depth
+        ``2**(level-1)``.  Every block is compressed with both parses and the
+        smaller payload wins, so levelled output is never larger than the
+        greedy output."""
         self._level = None if v is None or int(v) <= 1 else int(v)
         return self
 
     def engine(self, name) -> "CompressionSettings":
-        """Block-codec backend: ``"cuda"``, ``"cpu"``, a ``torch.device`` or
-        a callable."""
+        """Block-codec backend: ``"cuda"``, ``"cpu"``, ``"native"``, a
+        ``torch.device`` or a callable."""
         self._engine = name
+        return self
+
+    def threads(self, n: int) -> "CompressionSettings":
+        """Worker threads for independent-block frames on the ``"native"``
+        engine (0, the default: one a CPU, at most 8; 1: the serial loop).
+        Each block starts from the same template table, so the frame is
+        byte-identical to the serial writer's.  Linked frames ignore it
+        (the table chains from block to block), and so do the device
+        engines, whose batch is one launch."""
+        self._threads = max(int(n), 0)
         return self
 
     # -- compression entry points -------------------------------------------
@@ -159,8 +184,11 @@ class CompressionSettings:
     # -- the frame writer itself (reference compress.rs:159-282) ------------
 
     def _compress_internal(self, reader, writer, content_size) -> None:
-        compress_block, dev = _resolve_engine(self._engine)
-        hash_device = engine_hash_device() if dev is None else dev.type
+        compress_block, dev, hash_device = _resolve_engine(self._engine)
+        hc = None
+        if self._level is not None:
+            cpu = dev is not None and dev.type == "cpu"
+            hc = spec_compress_block_hc if cpu else native.compress_block_hc
 
         flags = Flags(
             independent_blocks=self._independent_blocks,
@@ -187,16 +215,20 @@ class CompressionSettings:
         writer.write(bytes(header))
 
         if flags.independent_blocks and dev is not None:
-            self._write_batches(reader, writer, flags, content_hasher, dev)
+            self._write_batches(reader, writer, flags, content_hasher, dev, hc)
+        elif (flags.independent_blocks and self._engine == "native"
+              and native.host_threads(self._threads) > 1):
+            self._write_threaded(reader, writer, flags, content_hasher, compress_block, hc,
+                                 native.host_threads(self._threads))
         else:
-            self._write_blocks(reader, writer, flags, content_hasher, compress_block,
+            self._write_blocks(reader, writer, flags, content_hasher, compress_block, hc,
                                hash_device)
 
         writer.write((0).to_bytes(4, "little"))
         if content_hasher is not None:
             writer.write(content_hasher.digest().to_bytes(4, "little"))
 
-    def _write_batches(self, reader, writer, flags, content_hasher, dev) -> None:
+    def _write_batches(self, reader, writer, flags, content_hasher, dev, hc) -> None:
         """Independent blocks, ``BATCH_BYTES`` of input at a time: one
         greedy-compressor launch over every block of a batch, each block
         behind the dictionary with the primed template table, output capped
@@ -215,18 +247,59 @@ class CompressionSettings:
             for i, greedy in enumerate(payloads):
                 raw = mv[i * bs : i * bs + int(lens[i])]
                 data = initializer + raw if initializer else raw
-                self._write_block(writer, data, len(initializer), greedy, flags, dev.type)
+                self._write_block(writer, data, len(initializer), greedy, hc, flags, dev.type)
 
-    def _write_blocks(self, reader, writer, flags, content_hasher, compress_block,
+    def _template(self):
+        """Dictionary priming: the template table and the block initializer."""
+        table = U32Table()
+        if self._dictionary is None:
+            return table, b""
+        prime_u32_table(table, self._dictionary)
+        return table, self._dictionary
+
+    def _write_threaded(self, reader, writer, flags, content_hasher, compress_block, hc,
+                        nthreads) -> None:
+        """Independent blocks on the native engine, on ``nthreads`` threads:
+        each block is parsed (greedy, then HC with a level) from its own copy
+        of the template table behind the initializer, as the per-block loop
+        parses it; the stream's reading, the content checksum and the
+        blocks' emission stay on this thread, in frame order, at most
+        ``2 * nthreads`` blocks ahead (the stream is read one block ahead)."""
+        template_table, initializer = self._template()
+        cursor = len(initializer)
+
+        def job(data, read_bytes):
+            try:
+                greedy = bytes(compress_block(data, cursor=cursor, table=template_table.copy(),
+                                              acceleration=self._acceleration, cap=read_bytes))
+            except Incompressible:
+                greedy = None
+            return self._payload(data, cursor, greedy, hc)
+
+        pending = deque()
+        chunk = _read_up_to(reader, self._block_size)
+        with ThreadPoolExecutor(nthreads) as pool:
+            while chunk:
+                following = _read_up_to(reader, self._block_size)
+                if content_hasher is not None:
+                    content_hasher.update(chunk)
+                data = initializer + chunk if initializer else chunk
+                if not following and not pending:
+                    # a frame of one block: parsed here, without a thread's start-up
+                    self._emit(writer, data, cursor, job(data, len(chunk)), flags, "native")
+                    return
+                pending.append((pool.submit(job, data, len(chunk)), data))
+                while pending and (not following or len(pending) > 2 * nthreads):
+                    future, data = pending.popleft()
+                    self._emit(writer, data, cursor, future.result(), flags, "native")
+                chunk = following
+
+    def _write_blocks(self, reader, writer, flags, content_hasher, compress_block, hc,
                       hash_device) -> None:
         """The per-block loop (reference ``compress.rs:202-275``): linked
-        frames, whose table and window carry over, and callable engines."""
-        # dictionary priming: template table + block initializer
-        template_table = U32Table()
-        block_initializer = b""
-        if self._dictionary is not None:
-            prime_u32_table(template_table, self._dictionary)
-            block_initializer = self._dictionary
+        frames, whose table and window carry over, callable engines, and
+        the native engine on one thread."""
+        template_table, block_initializer = self._template()
 
         in_buffer = bytearray(block_initializer)
         table = template_table.copy()
@@ -258,7 +331,7 @@ class CompressionSettings:
                 )
             except Incompressible:
                 pass
-            self._write_block(writer, data, window_offset, compressed, flags, hash_device)
+            self._write_block(writer, data, window_offset, compressed, hc, flags, hash_device)
 
             if flags.independent_blocks:
                 in_buffer = bytearray(block_initializer)
@@ -268,20 +341,27 @@ class CompressionSettings:
                 table.slide(forget)
                 del in_buffer[:forget]
 
-    def _write_block(self, writer, data, cursor, greedy, flags, hash_device) -> None:
+    def _write_block(self, writer, data, cursor, greedy, hc, flags, hash_device) -> None:
         """Emit the block ``data[cursor:]`` (``data[:cursor]`` is its
-        prefix) from its greedy payload (``None``: over the cap): with a
-        level, the HC parse capped at that payload competes; a block that
-        neither parse shrank is stored raw."""
-        compressed = greedy
-        if self._level is not None:
-            cap = len(greedy) if greedy is not None else len(data) - cursor
-            try:
-                hc = bytes(compress_block_hc(data, cursor=cursor, level=self._level, cap=cap))
-                if greedy is None or len(hc) < len(greedy):
-                    compressed = hc
-            except Incompressible:
-                pass
+        prefix) from its greedy payload (``None``: over the cap)."""
+        self._emit(writer, data, cursor, self._payload(data, cursor, greedy, hc), flags,
+                   hash_device)
+
+    def _payload(self, data, cursor, greedy, hc):
+        """The block's payload: the HC parse ``hc`` (``None`` without a
+        level), capped at the greedy payload, competes with it; ``None``
+        when neither parse shrank the block."""
+        if hc is None:
+            return greedy
+        cap = len(greedy) if greedy is not None else len(data) - cursor
+        try:
+            levelled = bytes(hc(data, cursor=cursor, level=self._level, cap=cap))
+        except Incompressible:
+            return greedy
+        return levelled if greedy is None or len(levelled) < len(greedy) else greedy
+
+    def _emit(self, writer, data, cursor, compressed, flags, hash_device) -> None:
+        """Write one block: its payload, or ``data[cursor:]`` stored raw."""
         if compressed is not None:
             writer.write(len(compressed).to_bytes(4, "little"))
             payload = compressed

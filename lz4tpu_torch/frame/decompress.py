@@ -9,26 +9,36 @@ adapter ``LZ4FrameIoReader`` (``into_read``), and the one-shot
 
 The block engine is ``"cuda"`` (default: ``kernels.decompress
 .decompress_block_cuda``), ``"cpu"`` (the same adapter on the plain
-versions), a ``torch.device``, or a callable with the spec's
-``decompress_block`` contract.  ``read_all`` of a fresh reader of an
-independent-block frame on a device engine reads the whole block chain,
-then decodes every compressed block in one launch (decode128 for 64 KiB
-blocks, decode_big for larger ones); it raises the errors of the
+versions), ``"native"`` (the host's C++ decoder, ``lz4tpu_torch.native``),
+a ``torch.device``, or a callable with the spec's ``decompress_block``
+contract.  ``read_all`` of a fresh reader of an independent-block frame
+reads the whole block chain, then decodes every compressed block at once:
+on a device engine in one launch (decode128 for 64 KiB blocks, decode_big
+for larger ones), on ``"native"`` on a pool of threads (``host_threads``:
+``$LZ4TPU_HOST_THREADS``, or one a CPU, at most 8), each block straight
+into its place in the output.  Either way it raises the errors of the
 per-block loop in the same order: the first failing block in frame order,
 and within a block size, truncation, block checksum, decode.  Linked
-frames, partly read readers and callable engines take the per-block loop.
+frames, partly read readers, callable engines and ``"native"`` with one
+thread take the per-block loop.
 """
 
 from __future__ import annotations
 
 import functools
 import io
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
+
+from .. import native
 from ..parallel.pipeline import _decode_payloads, _join_blocks, _scan_frame
 from ..runtime import resolve_device
 from ..spec.block import DecodeError
 from ..spec.xxhash32 import xxh32
-from ..utils.hashing import engine_hash_device, make_hasher
+from ..utils.hashing import make_hasher
 from ..utils.hashing import xxh32 as payload_xxh32
 from .errors import (
     BlockChecksumFail,
@@ -43,14 +53,81 @@ from .header import INCOMPRESSIBLE, MAGIC, WINDOW_SIZE, BlockDescriptor, Flags
 
 
 def _resolve_engine(name):
-    """Map an engine to (``decompress_block`` callable, device): the device
-    is ``None`` for a callable engine, which ``read_all`` cannot batch."""
+    """Map an engine to (``decompress_block`` callable, device, checksum
+    backend): the device is ``None`` for ``"native"`` and a callable
+    engine, which ``read_all`` cannot launch."""
     if callable(name):
-        return name, None
+        return name, None, "native"
+    if name == "native":
+        return native.decompress_block, None, "native"
     from ..kernels.decompress import decompress_block_cuda
 
     dev = resolve_device(name)
-    return functools.partial(decompress_block_cuda, device=dev), dev
+    return functools.partial(decompress_block_cuda, device=dev), dev, dev.type
+
+
+def host_threads() -> int:
+    """Threads of the native engine's ``read_all``: ``$LZ4TPU_HOST_THREADS``,
+    or for 0 or unset one a CPU, at most 8."""
+    return native.host_threads(int(os.environ.get("LZ4TPU_HOST_THREADS", "0")))
+
+
+#: output slots up to this size come from a warm buffer of the calling thread
+POOLED_BYTES = 256 << 20
+_warm = threading.local()
+
+
+def _output_slots(n: int) -> np.ndarray:
+    """``n`` bytes for the native ``read_all``'s block slots: this thread's
+    buffer, whose pages were faulted in once, when it was allocated, on
+    this thread.  Fresh pages would fault inside the parallel decode, where
+    page faults serialize on the process's memory map."""
+    if n > POOLED_BYTES:
+        return np.empty(n, np.uint8)
+    buf = getattr(_warm, "buf", None)
+    if buf is None or buf.size < n:
+        buf = np.empty(min(max(n, 1 << 20, 0 if buf is None else 2 * buf.size), POOLED_BYTES),
+                       np.uint8)
+        buf.fill(0)
+        _warm.buf = buf
+    return buf[:n]
+
+
+def _decode_native(blocks, block_maxsize: int, dictionary: bytes, nthreads: int) -> bytes:
+    """The frame's content from its scanned independent ``blocks``, each
+    decoded by the native engine on one of ``nthreads`` threads straight
+    into its slot of ``block_maxsize`` bytes; raises the first failing
+    block's error in frame order, as ``_decode_payloads`` does (the
+    decoder's ``DecodeError``, or ``BlockSizeOverflow`` for a block that
+    decoded past ``block_maxsize``)."""
+    bs = block_maxsize
+    slots = _output_slots(len(blocks) * bs)
+    prefix = dictionary[-WINDOW_SIZE:]
+
+    def job(i):
+        compressed, payload, _ = blocks[i]
+        slot = slots[i * bs : (i + 1) * bs]
+        if not compressed:
+            slot[: len(payload)] = np.frombuffer(payload, np.uint8)
+            return len(payload)
+        try:
+            return native.decompress_block_into(payload, slot, prefix, output_limit=bs)
+        except DecodeError as e:
+            if e.kind != DecodeError.KIND_MEMORY_LIMIT:
+                raise
+        # past its slot: the serial reader's outcome is the decoder's error,
+        # if the stream has one further on, else the size overflow
+        native.decompress_block(payload, prefix, output_limit=bs)
+        raise BlockSizeOverflow("a block decompressed to more data than allowed")
+
+    # a lone block would gain nothing from a pool but its threads' start-up
+    if min(nthreads, len(blocks)) < 2:
+        lens = [job(i) for i in range(len(blocks))]
+    else:
+        with ThreadPoolExecutor(min(nthreads, len(blocks))) as pool:
+            lens = [f.result() for f in [pool.submit(job, i) for i in range(len(blocks))]]
+    view = memoryview(slots)
+    return b"".join(view[i * bs : i * bs + n] for i, n in enumerate(lens))
 
 
 def _read_exact(reader, n: int) -> bytes:
@@ -76,8 +153,8 @@ class LZ4FrameReader:
 
     def __init__(self, reader, engine="cuda"):
         reader = _as_reader(reader)
-        self._decompress_block, self._device = _resolve_engine(engine)
-        self._hash_device = engine_hash_device() if self._device is None else self._device.type
+        self._decompress_block, self._device, self._hash_device = _resolve_engine(engine)
+        self._engine = engine
 
         magic = int.from_bytes(_read_exact(reader, 4), "little")
         if magic != MAGIC:
@@ -191,12 +268,19 @@ class LZ4FrameReader:
         return output
 
     def read_all(self, dictionary: bytes = b"") -> bytes:
-        """Decode every block in order and concatenate: in one launch for a
-        fresh reader of an independent frame on a device engine, else block
-        by block."""
-        if (self._device is not None and self._carryover_window is None
-                and not self._blocks_read and not self._finished):
-            return self._read_all_batched(dictionary)
+        """Decode every block in order and concatenate: for a fresh reader
+        of an independent frame in one launch on a device engine, on a pool
+        of threads on ``"native"``; else block by block."""
+        if self._carryover_window is None and not self._blocks_read and not self._finished:
+            if self._device is not None:
+                return self._read_all_batched(dictionary, lambda blocks: _join_blocks(
+                    blocks, _decode_payloads([p for c, p, _ in blocks if c],
+                                             self.block_maxsize,
+                                             bytes(dictionary)[-WINDOW_SIZE:],
+                                             (self._device,))))
+            if self._engine == "native" and host_threads() > 1:
+                return self._read_all_batched(dictionary, lambda blocks: _decode_native(
+                    blocks, self.block_maxsize, bytes(dictionary), host_threads()))
         parts = []
         while True:
             block = self.decode_block(dictionary)
@@ -204,12 +288,14 @@ class LZ4FrameReader:
                 return b"".join(parts)
             parts.append(block)
 
-    def _read_all_batched(self, dictionary: bytes) -> bytes:
-        """``read_all`` as one decode launch, raising what the per-block
-        loop would raise first: the chain is scanned until its end or its
-        first size or truncation error, the blocks before that are checked
-        until the first bad block checksum, the blocks before that are
-        decoded, and the first error in frame order wins."""
+    def _read_all_batched(self, dictionary: bytes, decode) -> bytes:
+        """``read_all`` as one decode of all blocks (``decode(blocks)``: the
+        content of the scanned blocks, or the first failing block's error),
+        raising what the per-block loop would raise first: the chain is
+        scanned until its end or its first size or truncation error, the
+        blocks before that are checked until the first bad block checksum,
+        the blocks before that are decoded, and the first error in frame
+        order wins."""
         self._finished = True
         blocks = []
         try:
@@ -223,16 +309,13 @@ class LZ4FrameReader:
             good = next((k for k, (_, payload, checksum) in enumerate(blocks)
                          if payload_xxh32(payload, device=self._hash_device) != checksum), good)
         try:
-            outputs = _decode_payloads([p for c, p, _ in blocks[:good] if c],
-                                       self.block_maxsize, bytes(dictionary)[-WINDOW_SIZE:],
-                                       (self._device,))
+            output = decode(blocks[:good])
         except DecodeError as e:
             raise CodecError(e.kind) from e
         if good < len(blocks):
             raise BlockChecksumFail("a block checksum was invalid")
         if stop is not None:
             raise stop
-        output = _join_blocks(blocks, outputs)
         if self._content_hasher is not None:
             if self._content_hasher.update(output).digest() != expected:
                 raise FrameChecksumFail("the frame checksum was invalid")

@@ -62,6 +62,20 @@ def test_cpu_engine_frames_equal_jax_cli(case, inputs, tmp_path):
         _round_trip(tmp_path / "port.lz4", src, engine, tmp_path, *dictionary)
 
 
+@pytest.mark.parametrize("case", sorted(SCALAR))
+def test_native_engine_frames_equal_jax_cli(case, inputs, tmp_path):
+    """``--engine native``: the port's host engine writes ``lz4tpu``'s CLI
+    frames and reads them back on itself and on the plain versions."""
+    flags = [str(inputs["dict"]) if f == "dict" else f for f in SCALAR[case]]
+    src = inputs["small" if case == "level_9" else "data"]
+    want = _compress(jax_dolz4, src, tmp_path / "jax.lz4", "--engine", "native", *flags)
+    got = _compress(dolz4, src, tmp_path / "port.lz4", "--engine", "native", *flags)
+    assert got == want
+    dictionary = ["--dictionary", str(inputs["dict"])] if case == "dictionary" else []
+    for engine in ("native", "cpu"):
+        _round_trip(tmp_path / "port.lz4", src, engine, tmp_path, *dictionary)
+
+
 PARALLEL = {
     "default": [],
     "lane_kernel": ["--lane-kernel"],
@@ -108,7 +122,7 @@ def test_stdin_and_stdout_streams(inputs, tmp_path, monkeypatch, capsys):
     (dolz4, ["--engine", "cpu-parallel", "--level", "9"]),
     (dolz4, ["--engine", "cpu", "--lane-kernel"]),
     (dolz4, ["--engine", "tpu"]),
-    (delz4, ["--engine", "native"]),
+    (delz4, ["--engine", "native-parallel"]),
 ], ids=["level_on_parallel", "lane_kernel_on_scalar", "tpu_engine", "native_engine"])
 def test_refused_flags(tool, flags, inputs, tmp_path):
     with pytest.raises(SystemExit):

@@ -37,8 +37,27 @@ def _forbidden(name):
 def test_import_leaves_jax_and_lz4tpu_out():
     code = (
         "import sys, lz4tpu_torch, lz4tpu_torch.cli.dolz4, lz4tpu_torch.cli.delz4\n"
-        "import lz4tpu_torch.interop, lz4tpu_torch.spec.hc\n"
+        "import lz4tpu_torch.interop, lz4tpu_torch.spec.hc, lz4tpu_torch.native\n"
         "import lz4tpu_torch.parallel.mesh, lz4tpu_torch.parallel.runner\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lz4tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
+def test_native_engine_loads_without_jax_or_lz4tpu():
+    """The host engine builds, loads and runs (a frame through the native
+    writer and reader) with neither JAX nor the JAX package imported."""
+    code = (
+        "import sys, lz4tpu_torch.native as n, lz4tpu_torch as lt\n"
+        "data = b'native engine ' * 5000\n"
+        "frame = lt.CompressionSettings().engine('native').level(9).compress_bytes(data)\n"
+        "assert lt.decompress_frame(frame, engine='native') == data\n"
+        "assert n.decompress_block(n.compress_block(data)) == data\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lz4tpu'))\n"
         "assert not bad, bad\n"
     )
