@@ -103,9 +103,19 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``"native"``, equal to 6c's; (d) ``dolz4``/``delz4 --engine native``
    round trips, compared with ``cmp``.  Host rates, printed with the
    host's CPU and the card's name and power limit beside the same run's
-   device rates; the native paths must launch no kernel.
+   device rates; the native paths must launch no kernel;
+9. bounded-memory decode (the F1 frames): (a) 25,000 one-byte blocks under
+   a 4 MiB block maxsize (over 100 GB of output rows as one launch) and
+   (b) 200,000 under 64 KiB, each through ``read_all`` on ``"cuda"``,
+   ``decompress_frame_parallel`` (and ``lane_kernel=False``) and
+   ``read_all`` on ``"native"``, both in one ``decompress_frames_parallel``
+   call; (c) 25,000 one-block linked frames of 4 MiB maxsize in one
+   ``decompress_frames_parallel`` call (one wave).  Each call prints its
+   peak device memory, launches (its groups) and wall time, and fails if
+   the peak passes ``DECODE_BUDGET`` + the packed compressed rows + the
+   content + 256 MiB (+ 64 KiB a linked frame; + decompress_v4's scratch).
 
-In phases 3 to 8 outputs must be byte-equal to the inputs, and every
+In phases 3 to 9 outputs must be byte-equal to the inputs, and every
 kernel of a path must have been launched on it: the launch counts are set
 to 0 before each path and read after it.
 
@@ -127,6 +137,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 SEGMENT = 1 << 20  # phase 4 (b): a log segment or page group
 RUNNER_SHARD = 16 << 20  # phase 7 (d): the runner's shard, 13 of them at full scale
+# phase 9: blocks of the F1 frames at 4 MiB and 64 KiB maxsize, and linked frames
+F1_BLOCKS = {"4 MiB": 25_000, "64 KiB": 200_000}
+F1_LINKED = 25_000
 
 
 def fail(msg: str) -> None:
@@ -2084,6 +2097,104 @@ def phase_native(members, frames_4a, mirror, smi):
     return {"8a": report}
 
 
+def f1_frame(n_blocks: int, bd: int, linked: bool = False, first: int = 0):
+    """(frame, content): a frame with a content checksum (independent, or
+    linked) of ``n_blocks`` compressed blocks of one byte each, block i the
+    2-byte stream ``10 b`` with ``b = (7 (first + i)) & 0xFF``: what a
+    streaming writer that flushes after every byte makes.  BD ``0x70``
+    declares 4 MiB blocks, ``0x40`` 64 KiB."""
+    import numpy as np
+
+    from lz4tpu_torch import native
+
+    flg = 0x44 if linked else 0x64
+    content = ((np.arange(first, first + n_blocks) * 7) & 0xFF).astype(np.uint8)
+    body = np.zeros((n_blocks, 6), np.uint8)
+    body[:, 0] = 2
+    body[:, 4] = 0x10
+    body[:, 5] = content
+    content = content.tobytes()
+    header = bytes([0x04, 0x22, 0x4D, 0x18, flg, bd, (native.xxh32(bytes([flg, bd])) >> 8) & 0xFF])
+    return header + body.tobytes() + bytes(4) + native.xxh32(content).to_bytes(4, "little"), content
+
+
+def phase_f1(smi):
+    """Slice 10's bound on the card: frames of one-byte blocks far below
+    their block maxsize decode in groups under ``DECODE_BUDGET``.  (a) 25,000
+    blocks under a 4 MiB maxsize (more than 80 GB of output rows as one
+    launch) and (b) 200,000 under 64 KiB, each through ``read_all`` on
+    ``"cuda"``, ``decompress_frame_parallel`` (and ``lane_kernel=False``),
+    ``decompress_frames_parallel`` (both frames in one call) and ``read_all``
+    on ``"native"``; (c) 25,000 one-block linked frames of 4 MiB maxsize in
+    one ``decompress_frames_parallel`` call, one wave.  Each call's bytes
+    equal the content built here; its peak device memory (above what was
+    allocated before it) must stay under the budget + the packed
+    compressed rows + the content + 256 MiB, plus 64 KiB a linked frame for
+    the windows and, on decompress_v4, its scratch (``SCRATCH_BUDGET`` of
+    ``csrc/decode_v4.cu``, at the group's shape)."""
+    import torch
+
+    import lz4tpu_torch as lt
+    from lz4tpu_torch import build
+    from lz4tpu_torch.kernels.pack import DECODE_BUDGET, budget_groups
+    from lz4tpu_torch.runtime import round_up
+
+    mib = 1 << 20
+    print(f"  card {smi}; DECODE_BUDGET {DECODE_BUDGET / mib:,.0f} MiB a device")
+    frames = {name: f1_frame(F1_BLOCKS[name], bd) for name, bd in (("4 MiB", 0x70),
+                                                                      ("64 KiB", 0x40))}
+    maxsize = {"4 MiB": 4 * mib, "64 KiB": 64 << 10}
+    rows = {name: len(content) * 16 for name, (_, content) in frames.items()}
+
+    def measured(label, fn, want, bound, needed=()):
+        meter = PathMeter(f"(9) {label}", needed)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got, t = wall(fn)
+        peak = torch.cuda.max_memory_allocated() - base
+        report = meter.finish()
+        if got != want:
+            fail(f"(9) {label}: the output differs from the content")
+        groups = {n: r["launches"] for n, r in report.items() if r["launches"]}
+        if not needed and groups:
+            fail(f"(9) {label}: the native engine launched {groups}")
+        print(f"    peak {peak / mib:,.1f} MiB of a bound of {bound / mib:,.1f} MiB; launches "
+              f"{groups or 'none'}; {t:.2f} s")
+        if peak > bound:
+            fail(f"(9) {label}: peak device memory {peak:,d} B over the bound {bound:,d} B")
+
+    for part, (name, (frame, content)) in zip("ab", frames.items()):
+        n = len(content)
+        kernel = "decode_big" if maxsize[name] > 64 << 10 else "decode128"
+        out_capacity = round_up(maxsize[name] + 16, 16)
+        bound = DECODE_BUDGET + rows[name] + n + 256 * mib
+        print(f"  ({part}) {n:,d} blocks of one byte, {name} maxsize, {len(frame):,d} B of "
+              f"frame: {n * (out_capacity + 16) / 1e9:,.1f} GB of output rows as one launch")
+        measured(f"read_all cuda, {name}", lambda: lt.LZ4FrameReader(frame).read_all(),
+                 content, bound, (kernel,))
+        measured(f"decompress_frame_parallel, {name}",
+                 lambda: lt.decompress_frame_parallel(frame), content, bound, (kernel,))
+        group = budget_groups(n, out_capacity + 16)[0][1]
+        scratch = build.load().lz4t_decode_v4_scratch(group, 16, out_capacity)
+        measured(f"decompress_frame_parallel(lane_kernel=False), {name}",
+                 lambda: lt.decompress_frame_parallel(frame, lane_kernel=False), content,
+                 bound + scratch, ("decode_v4",))
+        measured(f"read_all native, {name}",
+                 lambda: lt.decompress_frame(frame, engine="native"), content, 256 * mib)
+    both = [content for _, content in frames.values()]
+    measured("decompress_frames_parallel, both frames",
+             lambda: lt.decompress_frames_parallel([f for f, _ in frames.values()]), both,
+             DECODE_BUDGET + sum(rows.values()) + sum(map(len, both)) + 256 * mib,
+             ("decode_big", "decode128"))
+    linked = [f1_frame(1, 0x70, linked=True, first=j) for j in range(F1_LINKED)]
+    print(f"  (c) {len(linked):,d} one-block linked frames of 4 MiB maxsize, one wave")
+    measured("decompress_frames_parallel, linked",
+             lambda: lt.decompress_frames_parallel([f for f, _ in linked]),
+             [c for _, c in linked],
+             DECODE_BUDGET + len(linked) * (16 + 1 + (64 << 10)) + 256 * mib, ("decode_big",))
+
+
 def profile_lane(members):
     """The largest member through phase 5: (a) 4 MiB independent lane
     blocks, (c) its 1 MiB segments as linked lane frames."""
@@ -2175,6 +2286,8 @@ def main() -> int:
                             {"3": scalar_3, "4b": scalar["4b"], "5a": summary_5a}))
     phase("phase 8: the host engine (native): level(), threads(n), linked frames, CLI")
     paths.update(phase_native(members, frames_4a, mirror_6, smi))
+    phase("phase 9: F1, frames of one-byte blocks in bounded memory")
+    phase_f1(smi)
     phase("")
 
     rows = []

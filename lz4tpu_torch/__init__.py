@@ -29,9 +29,9 @@ into ``_build/`` at first use), which needs no card.
   frame's blocks in one launch a batch on a device, on ``threads(n)``
   threads on ``"native"``; ``level()`` adds the HC parse on the host, the
   native engine's but on ``"cpu"``), ``LZ4FrameReader`` (``read_all`` of
-  an independent frame in one launch, or on a thread pool on
-  ``"native"``), ``LZ4FrameIoReader`` (``into_read``),
-  ``decompress_frame``;
+  an independent frame in one launch a group of blocks under
+  ``kernels.pack.DECODE_BUDGET``, or on a thread pool on ``"native"``),
+  ``LZ4FrameIoReader`` (``into_read``), ``decompress_frame``;
 * the crate root's block codec: ``compress_block`` and
   ``decompress_block`` (the reference's signatures, ``device=None``
   meaning ``"cuda"``), ``compress_block_hc`` (host parse), ``XXHash32``

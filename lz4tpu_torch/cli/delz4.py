@@ -3,9 +3,10 @@
 The port's counterpart of ``lz4tpu/cli/delz4.py`` (reference
 ``examples/delz4.rs``).  Engines: ``cuda`` (the default:
 ``decompress_frame`` on the card, an independent frame's blocks in one
-launch), ``cpu`` (the same on the kernels' plain versions), ``native``
-(the host's C++ decoder, an independent frame's blocks on a pool of
-threads; no card needed), ``cuda-parallel`` and ``cpu-parallel``
+launch a group of blocks under ``kernels.pack.DECODE_BUDGET``), ``cpu``
+(the same on the kernels' plain versions), ``native`` (the host's C++
+decoder, an independent frame's blocks on a pool of threads; no card
+needed), ``cuda-parallel`` and ``cpu-parallel``
 (``decompress_frame_parallel``).
 
     python3 -m lz4tpu_torch.cli.delz4 in.lz4 out [--engine cuda] [-v]

@@ -13,10 +13,13 @@ versions), ``"native"`` (the host's C++ decoder, ``lz4tpu_torch.native``),
 a ``torch.device``, or a callable with the spec's ``decompress_block``
 contract.  ``read_all`` of a fresh reader of an independent-block frame
 reads the whole block chain, then decodes every compressed block at once:
-on a device engine in one launch (decode128 for 64 KiB blocks, decode_big
-for larger ones), on ``"native"`` on a pool of threads (``host_threads``:
-``$LZ4TPU_HOST_THREADS``, or one a CPU, at most 8), each block straight
-into its place in the output.  Either way it raises the errors of the
+on a device engine in one launch a group of blocks (decode128 for 64 KiB
+blocks, decode_big for larger ones), on ``"native"`` on a pool of threads
+(``host_threads``: ``$LZ4TPU_HOST_THREADS``, or one a CPU, at most 8),
+each block straight into its slot.  The groups, and the native slots,
+hold at most ``kernels.pack.DECODE_BUDGET`` bytes, so the memory of a
+frame of many small blocks grows with its content, not with its blocks
+times ``block_maxsize``.  Either way it raises the errors of the
 per-block loop in the same order: the first failing block in frame order,
 and within a block size, truncation, block checksum, decode.  Linked
 frames, partly read readers, callable engines and ``"native"`` with one
@@ -25,6 +28,7 @@ thread take the per-block loop.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import io
 import os
@@ -34,6 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 
 from .. import native
+from ..kernels.pack import budget_groups
 from ..parallel.pipeline import _decode_payloads, _join_blocks, _scan_frame
 from ..runtime import resolve_device
 from ..spec.block import DecodeError
@@ -96,17 +101,21 @@ def _output_slots(n: int) -> np.ndarray:
 def _decode_native(blocks, block_maxsize: int, dictionary: bytes, nthreads: int) -> bytes:
     """The frame's content from its scanned independent ``blocks``, each
     decoded by the native engine on one of ``nthreads`` threads straight
-    into its slot of ``block_maxsize`` bytes; raises the first failing
-    block's error in frame order, as ``_decode_payloads`` does (the
-    decoder's ``DecodeError``, or ``BlockSizeOverflow`` for a block that
-    decoded past ``block_maxsize``)."""
+    into its slot of ``block_maxsize`` bytes, in groups of blocks whose
+    slots fit ``DECODE_BUDGET``; raises the first failing block's error in
+    frame order, as ``_decode_payloads`` does (the decoder's
+    ``DecodeError``, or ``BlockSizeOverflow`` for a block that decoded past
+    ``block_maxsize``)."""
     bs = block_maxsize
-    slots = _output_slots(len(blocks) * bs)
+    groups = budget_groups(len(blocks), bs)
+    if not groups:
+        return b""
+    slots = _output_slots(max(hi - lo for lo, hi in groups) * bs)
     prefix = dictionary[-WINDOW_SIZE:]
 
-    def job(i):
+    def job(i, lo):
         compressed, payload, _ = blocks[i]
-        slot = slots[i * bs : (i + 1) * bs]
+        slot = slots[(i - lo) * bs : (i - lo + 1) * bs]
         if not compressed:
             slot[: len(payload)] = np.frombuffer(payload, np.uint8)
             return len(payload)
@@ -120,14 +129,18 @@ def _decode_native(blocks, block_maxsize: int, dictionary: bytes, nthreads: int)
         native.decompress_block(payload, prefix, output_limit=bs)
         raise BlockSizeOverflow("a block decompressed to more data than allowed")
 
-    # a lone block would gain nothing from a pool but its threads' start-up
-    if min(nthreads, len(blocks)) < 2:
-        lens = [job(i) for i in range(len(blocks))]
-    else:
-        with ThreadPoolExecutor(min(nthreads, len(blocks))) as pool:
-            lens = [f.result() for f in [pool.submit(job, i) for i in range(len(blocks))]]
     view = memoryview(slots)
-    return b"".join(view[i * bs : i * bs + n] for i, n in enumerate(lens))
+    # a lone block would gain nothing from a pool but its threads' start-up
+    threads = min(nthreads, len(blocks))
+    with ThreadPoolExecutor(threads) if threads > 1 else contextlib.nullcontext() as pool:
+        parts = []
+        for lo, hi in groups:  # each group's bytes leave the slots before the next's come
+            if pool is None:
+                lens = [job(i, lo) for i in range(lo, hi)]
+            else:
+                lens = [f.result() for f in [pool.submit(job, i, lo) for i in range(lo, hi)]]
+            parts.append(b"".join(view[k * bs : k * bs + n] for k, n in enumerate(lens)))
+    return parts[0] if len(parts) == 1 else b"".join(parts)
 
 
 def _read_exact(reader, n: int) -> bytes:
@@ -269,8 +282,9 @@ class LZ4FrameReader:
 
     def read_all(self, dictionary: bytes = b"") -> bytes:
         """Decode every block in order and concatenate: for a fresh reader
-        of an independent frame in one launch on a device engine, on a pool
-        of threads on ``"native"``; else block by block."""
+        of an independent frame in one launch a group of blocks on a device
+        engine, on a pool of threads on ``"native"``; else block by
+        block."""
         if self._carryover_window is None and not self._blocks_read and not self._finished:
             if self._device is not None:
                 return self._read_all_batched(dictionary, lambda blocks: _join_blocks(

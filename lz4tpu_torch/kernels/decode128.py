@@ -32,7 +32,8 @@ import torch
 
 from .. import build
 from ..runtime import KernelStats, resolve_device, round_up, stream_handle
-from .pack import check_decoded, fetch_rows, pack_prefixes, pack_rows
+from ..spec.block import WINDOW_SIZE
+from .pack import budget_groups, check_decoded, fetch_rows, pack_prefixes, pack_rows
 from .status import (
     ERR_INVALID_OFFSET,
     ERR_MEMORY_LIMIT,
@@ -219,14 +220,30 @@ def decode_plain(comp, comp_len, prefix, prefix_len, limit: int, out_capacity: i
 
 
 def decompress_batch(decoder, blocks, block_maxsize: int, prefixes, device):
-    """The bytes-level batch API of every decoder: pack, one launch of
-    ``decoder`` (``decode128``, ``decode_v4``, ``decode_big`` or
-    ``decode_v3``) on ``device``, ``DecodeError`` for the first failing block, else the
-    decoded blocks as a list of byte strings."""
+    """The bytes-level batch API of every decoder: pack, launch ``decoder``
+    (``decode128``, ``decode_v4``, ``decode_big`` or ``decode_v3``) on
+    ``device`` once a group of blocks under ``DECODE_BUDGET``, in order,
+    ``DecodeError`` for the first failing block, else the decoded blocks
+    as a list of byte strings."""
     dev = resolve_device(device)
     blocks = [bytes(b) for b in blocks]
     if not blocks:
         return []
+    if prefixes is not None:
+        prefixes = list(prefixes)
+        if len(prefixes) != len(blocks):
+            raise ValueError(f"{len(prefixes)} prefixes for {len(blocks)} blocks")
+    width = round_up(max(map(len, blocks)), 16)
+    row = round_up(block_maxsize + width, 16) + width + (WINDOW_SIZE if prefixes else 0)
+    decoded = []
+    for lo, hi in budget_groups(len(blocks), row):
+        decoded += _decode_group(decoder, blocks[lo:hi], block_maxsize,
+                                 None if prefixes is None else prefixes[lo:hi], dev)
+    return decoded
+
+
+def _decode_group(decoder, blocks, block_maxsize, prefixes, dev):
+    """One launch of ``decompress_batch``; its tensors are freed on return."""
     comp, comp_len = pack_rows(blocks, dev)
     prefix, prefix_len = pack_prefixes(prefixes, len(blocks), dev)
     out, out_len, status = decoder(comp, comp_len, prefix, prefix_len, block_maxsize)
@@ -238,7 +255,8 @@ def decompress_batch(decoder, blocks, block_maxsize: int, prefixes, device):
 
 
 def decompress_blocks_128(blocks, block_maxsize: int = 1 << 14, prefixes=None, device=None):
-    """Decode independent raw blocks of at most 64 KiB in one launch.
+    """Decode independent raw blocks of at most 64 KiB, one launch a group
+    of blocks under ``DECODE_BUDGET``.
     Raises ``DecodeError`` for the first failing block.  ``prefixes``
     (optional, per block): dictionary / carry-over window bytes that match
     offsets may reach back into (only the trailing 64 KiB is

@@ -66,7 +66,8 @@ def decode_big(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None
 
 def decompress_blocks_big(blocks, block_maxsize: int, prefixes=None, device=None):
     """Decode raw blocks of up to ``block_maxsize`` (any frame size code,
-    the 4 MiB default included) in one launch, any number of them.
+    the 4 MiB default included), any number of them, one launch a group
+    of blocks under ``DECODE_BUDGET``.
     ``prefixes`` (optional, per block): dictionary / carry-over window
     bytes the block's offsets may reach back into (the trailing 64 KiB).
     Raises ``DecodeError`` for the first failing block."""

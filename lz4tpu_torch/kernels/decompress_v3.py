@@ -52,6 +52,6 @@ def decode_v3(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None)
 
 
 def decompress_blocks_v3(blocks, prefixes=None, block_maxsize: int = 1 << 16, device=None):
-    """Batch decode in one launch; the same contract as
-    ``decompress_blocks_v4``."""
+    """Batch decode, one launch a group of blocks under ``DECODE_BUDGET``;
+    the same contract as ``decompress_blocks_v4``."""
     return decompress_batch(decode_v3, blocks, block_maxsize, prefixes, device)

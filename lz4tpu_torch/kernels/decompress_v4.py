@@ -92,8 +92,9 @@ def decode_v4(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None)
 
 
 def decompress_blocks_v4(blocks, prefixes=None, block_maxsize: int = 1 << 16, device=None):
-    """Batch decode in one call; raises ``DecodeError`` for the first
-    failing block.  Any comp or output size that fits in device memory."""
+    """Batch decode, one call a group of blocks under ``DECODE_BUDGET``;
+    raises ``DecodeError`` for the first failing block.  Any comp or
+    output size that fits in device memory."""
     return decompress_batch(decode_v4, blocks, block_maxsize, prefixes, device)
 
 

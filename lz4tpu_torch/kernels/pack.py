@@ -4,7 +4,10 @@
 A batch goes to the card as one padded uint8 tensor (one H2D copy), the
 kernel runs once, the per-block lengths and statuses come back first, and
 then only the bytes that were asked for: rows are compacted on the card
-into one flat tensor and copied back in one D2H copy.
+into one flat tensor and copied back in one D2H copy.  A batched decode is
+cut into groups of whole blocks, in order, each under ``DECODE_BUDGET``
+(``budget_groups``), so that its memory grows with what a frame holds, not
+with its blocks times ``block_maxsize``.
 """
 
 from __future__ import annotations
@@ -15,6 +18,18 @@ import torch
 from ..runtime import round_up
 from ..spec.block import WINDOW_SIZE
 from .status import OK
+
+#: bytes of output and compressed rows that one decode launch may hold on
+#: one device (one mesh entry); a call with more is cut into groups of
+#: whole blocks, one launch each, at least one block a group
+DECODE_BUDGET = 1 << 30
+
+
+def budget_groups(n: int, row_bytes: int):
+    """``n`` rows of ``row_bytes`` each, cut into contiguous ``(lo, hi)``
+    ranges of as many rows as ``DECODE_BUDGET`` holds, at least one."""
+    per = max(DECODE_BUDGET // max(row_bytes, 1), 1)
+    return [(lo, min(lo + per, n)) for lo in range(0, n, per)]
 
 
 def pack_rows(items, device, align_right: bool = False):

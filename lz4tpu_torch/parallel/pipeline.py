@@ -1,4 +1,5 @@
-"""Whole-frame codec: every block of a frame in one launch a device.
+"""Whole-frame codec: every block of a frame in one launch a device
+(a decode: one launch a group of blocks under ``DECODE_BUDGET``).
 
 Counterpart of ``lz4tpu/parallel/pipeline.py``.  Independent-block frames
 are embarrassingly parallel: the frame's blocks go to the card as one
@@ -29,15 +30,22 @@ block in frame order.  An entry that gets no block gets no launch.
   primed in the kernel.  Its payloads equal the JAX package's scalar
   linked path, not the serial writer's (whose table carries over).
 * ``decompress_frame_parallel`` — block scan with the streaming reader's
-  hostile-input checks, block checksums, one ``decode128`` launch for
-  frames of 64 KiB blocks, one ``decode_big`` launch for frames of larger
-  blocks (``decompress_v4`` when ``lane_kernel=False``), stored blocks
-  passed through, and the content checksum.  One linked frame is a serial
-  chain and goes to the port's serial reader, as in the JAX package.
+  hostile-input checks, block checksums, ``decode128`` for frames of 64
+  KiB blocks, ``decode_big`` for frames of larger blocks
+  (``decompress_v4`` when ``lane_kernel=False``), stored blocks passed
+  through, and the content checksum.  A frame's compressed blocks are one
+  launch unless their output rows and packed payloads pass
+  ``kernels.pack.DECODE_BUDGET`` (1 GiB a device): then they are cut into
+  groups of whole blocks in frame order, one launch each, so a frame of
+  many small blocks under a large ``block_maxsize`` needs about the budget,
+  its payloads and its content, not blocks times ``block_maxsize``.  One
+  linked frame is a serial chain and goes to the port's serial reader, as
+  in the JAX package.
 * ``decompress_frames_parallel`` — many frames at once: linked frames are
   decoded in waves, wave ``w`` being block ``w`` of every linked frame in
-  one launch, each block with its own frame's 64 KiB carry-over window,
-  which stays on the device from wave to wave.
+  one launch (a group of them under the budget), each block with its own
+  frame's 64 KiB carry-over window, which stays on the device from wave to
+  wave.
 
 ``compress_frame_parallel(lane_kernel=True)`` compresses with the lane
 compressor (``kernels/compress128.py``) instead: the input is cut into
@@ -66,7 +74,14 @@ from ..kernels.compress128 import MAX_B, compress128
 from ..kernels.decode128 import MAX_BLOCK, decode128
 from ..kernels.decodebig import decode_big
 from ..kernels.decompress_v4 import decode_v4
-from ..kernels.pack import check_decoded, compact_rows, fetch_rows, pack_prefixes, pack_rows
+from ..kernels.pack import (
+    budget_groups,
+    check_decoded,
+    compact_rows,
+    fetch_rows,
+    pack_prefixes,
+    pack_rows,
+)
 from ..kernels.splice import splice_streams
 from ..kernels.status import OK, STATUS_INCOMPRESSIBLE, STATUS_TO_KIND
 from ..runtime import host_u8, resolve_device, round_up
@@ -458,7 +473,8 @@ def decompress_frame_parallel(
     mesh=None,
 ) -> bytes:
     """Decompress one LZ4 frame with all independent blocks in one launch
-    (one a mesh entry with ``mesh``).
+    (one a mesh entry with ``mesh``), or one a group of blocks under
+    ``DECODE_BUDGET`` where they pass it.
 
     A preset dictionary is shared by every block as its prefix.  Frames of
     64 KiB blocks decode on ``decode128``, frames of larger blocks on
@@ -494,8 +510,9 @@ def decompress_frame_parallel(
 
 
 def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None):
-    """The compressed payloads of an independent frame, decoded in one
-    launch on each device of ``devs`` (a mesh's) that gets a range of them;
+    """The compressed payloads of an independent frame, decoded on each
+    device of ``devs`` (a mesh's) that gets a range of them, one launch a
+    group of blocks under ``DECODE_BUDGET`` (the budget is per device);
     raises the first failing block's error in frame order (the decoder's
     ``DecodeError``, or ``BlockSizeOverflow`` for a block that decoded past
     ``block_maxsize``)."""
@@ -505,25 +522,52 @@ def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None
         decoder = decode_v4
     else:
         decoder = decode128 if block_maxsize <= MAX_BLOCK else decode_big
-    # every range gets the output capacity of one launch over all the
+    # every group gets the output capacity of one launch over all the
     # payloads, so that a hostile block stops where it would stop there
-    out_capacity = round_up(block_maxsize + round_up(max(map(len, payloads)), 16), 16)
-    launched = []
-    for lo, hi, dev in _ranges(len(payloads), devs):
-        comp, comp_len = pack_rows(payloads[lo:hi], dev)
-        prefix, prefix_len = pack_prefixes([dictionary] * (hi - lo) if dictionary else None,
-                                           hi - lo, dev)
-        launched.append(decoder(comp, comp_len, prefix, prefix_len, block_maxsize,
-                                out_capacity))
-    # every range launched before the first lengths are read
-    results = [(out, out_len.cpu().numpy(), status.cpu().numpy())
-               for out, out_len, status in launched]
-    bad = check_decoded(np.concatenate([status for _, _, status in results]),
-                        np.concatenate([out_len for _, out_len, _ in results]), block_maxsize)
+    width = round_up(max(map(len, payloads)), 16)
+    out_capacity = round_up(block_maxsize + width, 16)
+    ranges = _ranges(len(payloads), devs)
+    groups = [[(lo + a, lo + b) for a, b in budget_groups(hi - lo, out_capacity + width)]
+              for lo, hi, _ in ranges]
+    outputs = [[] for _ in ranges]
+    first_bad = None  # (block index, error): no group from there on need run
+    for g in range(max(map(len, groups))):
+        # group g of every range launched before the first lengths are read
+        launched = []
+        for r, cuts in enumerate(groups):
+            if g < len(cuts) and (first_bad is None or cuts[g][0] < first_bad[0]):
+                a, b = cuts[g]
+                launched.append((r, a, _launch_decode(decoder, payloads[a:b], block_maxsize,
+                                                      dictionary, out_capacity, ranges[r][2])))
+        for r, a, result in launched:
+            rows, bad = _read_decoded(result, block_maxsize)
+            if bad is not None and (first_bad is None or a + bad[0] < first_bad[0]):
+                first_bad = (a + bad[0], bad[1])
+            outputs[r].append(rows)
+        launched = result = None  # this round's outputs freed before the next round's
+    if first_bad is not None:
+        raise first_bad[1]
+    return [row for parts in outputs for rows in parts for row in rows]
+
+
+def _launch_decode(decoder, payloads, block_maxsize, dictionary, out_capacity, dev):
+    """One launch of ``decoder`` over ``payloads`` on ``dev``, not waited
+    for: the kernel's (out, out_len, status)."""
+    comp, comp_len = pack_rows(payloads, dev)
+    prefix, prefix_len = pack_prefixes([dictionary] * len(payloads) if dictionary else None,
+                                       len(payloads), dev)
+    return decoder(comp, comp_len, prefix, prefix_len, block_maxsize, out_capacity)
+
+
+def _read_decoded(result, block_maxsize):
+    """(decoded rows, None) of a launch of ``_launch_decode``, or (None,
+    (index, error)) of its first failing block."""
+    out, out_len, status = result
+    out_len = out_len.cpu().numpy()
+    bad = check_decoded(status.cpu().numpy(), out_len, block_maxsize)
     if bad is not None:
-        raise bad[1]
-    return [row for out, out_len, _ in results
-            for row in fetch_rows(out, out_len, np.ones(len(out_len), bool))]
+        return None, bad
+    return fetch_rows(out, out_len, np.ones(len(out_len), bool)), None
 
 
 def _join_blocks(blocks, outputs) -> bytes:
@@ -536,7 +580,7 @@ def _join_blocks(blocks, outputs) -> bytes:
 def _decode_independent(reader, blocks, expected_sum, dictionary, devs, verify_checksums,
                         lane_kernel=None) -> bytes:
     """The scanned blocks of an independent frame, decoded in one launch a
-    device of ``devs``."""
+    group of blocks on each device of ``devs`` (``_decode_payloads``)."""
     outputs = _decode_payloads([p for c, p, _ in blocks if c], reader.block_maxsize,
                                dictionary, devs, lane_kernel)
     result = _join_blocks(blocks, outputs)
@@ -562,6 +606,23 @@ def _push_windows(windows, wlen, slots, data, lens):
     wlen[slots] = torch.clamp(wlen[slots] + lens.to(torch.int32), max=w)
 
 
+#: device bytes that ``_push_windows`` takes a row beside its data: the
+#: int64 byte positions and their two clamped copies, and four window rows
+PUSH_BYTES = 28 * WINDOW_SIZE
+
+
+def _wave_group(decoder, windows, wlen, slots, payloads, limit, dev):
+    """One launch of a wave over the frames ``slots``, their windows slid
+    over the output on the device: (the decoded rows packed on the device,
+    lengths, statuses)."""
+    slots = torch.tensor(slots, device=dev)
+    comp, comp_len = pack_rows(payloads, dev)
+    out, out_len, status = decoder(comp, comp_len, windows[slots], wlen[slots], limit)
+    _push_windows(windows, wlen, slots, out, out_len)
+    lens = out_len.cpu().numpy()
+    return compact_rows(out, lens), lens, status.cpu().numpy()
+
+
 def decompress_frames_parallel(
     frames,
     device=None,
@@ -573,20 +634,22 @@ def decompress_frames_parallel(
     frames, whose blocks form a serial chain within a frame (block ``i``
     needs the last 64 KiB that block ``i-1`` decoded to).  The chains of
     different frames do not depend on each other, so wave ``w`` decodes
-    block ``w`` of every linked frame that has one in one launch, each
-    block with its own frame's carry-over window as its prefix (the
-    dictionary's last 64 KiB before the first block).
+    block ``w`` of every linked frame that has one in one launch (a group
+    of frames under ``DECODE_BUDGET`` a launch), each block with its own
+    frame's carry-over window as its prefix (the dictionary's last 64 KiB
+    before the first block).
 
     The windows are one right-aligned ``(frames, 65536)`` tensor that is
     updated on the device after each wave, a stored block's payload
     included; each wave's output stays on the device until the end, and
-    only lengths and statuses come back per wave.  A wave is routed by the
-    largest ``block_maxsize`` in it, which is also its memory limit: up to
-    64 KiB to ``decode128``, larger to ``decode_big``.  A block that
-    decodes past its own frame's ``block_maxsize`` raises
-    ``BlockSizeOverflow``; content checksums are checked per frame at the
-    end.  Independent-block frames go through the one-launch decode of
-    ``decompress_frame_parallel``.
+    only lengths and statuses come back per wave.  The windows take 64 KiB
+    a linked frame: state bounded by the frames, not by the budget.  A
+    wave is routed by the largest ``block_maxsize`` in it, which is also
+    its memory limit: up to 64 KiB to ``decode128``, larger to
+    ``decode_big``.  A block that decodes past its own frame's
+    ``block_maxsize`` raises ``BlockSizeOverflow``; content checksums are
+    checked per frame at the end.  Independent-block frames go through the
+    decode of ``decompress_frame_parallel``.
 
     With ``mesh`` (in place of ``device``) the independent frames decode
     over the mesh, as in ``decompress_frame_parallel``, and the waves run
@@ -632,27 +695,31 @@ def decompress_frames_parallel(
             payloads = [linked[slot][2][w][1] for slot in stored]
             for slot, payload in zip(stored, payloads):
                 pieces[slot].append(payload)
-            data, lens = pack_rows([p[-WINDOW_SIZE:] for p in payloads], dev)
-            _push_windows(windows, wlen, torch.tensor(stored, device=dev), data, lens)
+            for a, b in budget_groups(len(stored), WINDOW_SIZE + PUSH_BYTES):
+                data, lens = pack_rows([p[-WINDOW_SIZE:] for p in payloads[a:b]], dev)
+                _push_windows(windows, wlen, torch.tensor(stored[a:b], device=dev), data, lens)
         if not todo:
             continue
         maxsizes = np.array([linked[slot][1].block_maxsize for slot in todo])
         limit = int(maxsizes.max())
         decoder = decode128 if limit <= MAX_BLOCK else decode_big
-        slots = torch.tensor(todo, device=dev)
-        comp, comp_len = pack_rows([linked[slot][2][w][1] for slot in todo], dev)
-        out, out_len, status = decoder(comp, comp_len, windows[slots], wlen[slots], limit)
-        _push_windows(windows, wlen, slots, out, out_len)
-        status = status.cpu().numpy()
-        lens = out_len.cpu().numpy()
-        if (status != OK).any():
-            raise DecodeError(STATUS_TO_KIND[int(status[status != OK][0])])
-        if (lens > maxsizes).any():
+        payloads = [linked[slot][2][w][1] for slot in todo]
+        width = round_up(max(map(len, payloads)), 16)
+        # a group's rows: output, compressed block, its window, the push's temporaries
+        row = round_up(limit + width, 16) + width + WINDOW_SIZE + PUSH_BYTES
+        overflow = False
+        for a, b in budget_groups(len(todo), row):
+            packed, lens, status = _wave_group(decoder, windows, wlen, todo[a:b],
+                                               payloads[a:b], limit, dev)
+            # a decode error anywhere in the wave wins over a size overflow
+            if (status != OK).any():
+                raise DecodeError(STATUS_TO_KIND[int(status[status != OK][0])])
+            overflow |= bool((lens > maxsizes[a:b]).any())
+            ends = np.cumsum(lens)
+            for k, slot in enumerate(todo[a:b]):
+                pieces[slot].append((packed, int(ends[k] - lens[k]), int(lens[k])))
+        if overflow:
             raise BlockSizeOverflow("a block decompressed to more data than allowed")
-        packed = compact_rows(out, lens)
-        ends = np.cumsum(lens)
-        for k, slot in enumerate(todo):
-            pieces[slot].append((packed, int(ends[k] - lens[k]), int(lens[k])))
 
     # one D2H copy of everything decoded, in frame and block order
     decoded = []
