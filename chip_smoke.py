@@ -113,9 +113,18 @@ Phases, in order; any mismatch or exception exits non-zero:
    ``decompress_frames_parallel`` call (one wave).  Each call prints its
    peak device memory, launches (its groups) and wall time, and fails if
    the peak passes ``DECODE_BUDGET`` + the packed compressed rows + the
-   content + 256 MiB (+ 64 KiB a linked frame; + decompress_v4's scratch).
+   content + 256 MiB (+ 64 KiB a linked frame; + decompress_v4's scratch);
+10. the bench and the entry points of `entry.py`: (a) ``python -m
+   lz4tpu_torch.bench`` as a subprocess at its defaults (every kernel timed
+   on its own inputs after a checked pass, the Silesia stand-in's headline;
+   at ``--scale`` under 1 its Silesia and big-block corpora are scaled
+   down), whose JSON line must hold every key, STRICT parity 128/128 and a
+   launch of each of the six kernels; (b) ``lz4tpu_torch.entry.entry()``'s
+   step (decode128 over its example batch) against its payloads and its
+   plain version; (c) ``dryrun_multichip`` on a mesh of every card and on
+   four entries of ``cuda:0``.
 
-In phases 3 to 9 outputs must be byte-equal to the inputs, and every
+In phases 3 to 10 outputs must be byte-equal to the inputs, and every
 kernel of a path must have been launched on it: the launch counts are set
 to 0 before each path and read after it.
 
@@ -2195,6 +2204,78 @@ def phase_f1(smi):
              DECODE_BUDGET + len(linked) * (16 + 1 + (64 << 10)) + 256 * mib, ("decode_big",))
 
 
+def phase_bench_and_entry(scale: float):
+    """Slice 11's programs on the card: (a) the bench as a subprocess, its
+    line checked; (b) ``entry()``'s step against its payloads and its plain
+    version; (c) ``dryrun_multichip`` on every card and on four entries of
+    ``cuda:0``.  Returns the report of (b) and (c), whose launches are this
+    process's."""
+    import torch
+
+    from lz4tpu_torch import bench, entry
+
+    torch.cuda.empty_cache()  # the bench process allocates on the same card
+    env = dict(os.environ)
+    if scale < 1:
+        env.update(LZ4TPU_BENCH_SIL_SCALE=str(scale),
+                   LZ4TPU_BENCH_DBIG_MB_1M=str(max(128 * scale, 1)),
+                   LZ4TPU_BENCH_DBIG_MB_4M=str(max(512 * scale, 4)))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "lz4tpu_torch.bench"], cwd=HERE, env=env,
+                       capture_output=True, text=True, timeout=600)
+    t = time.perf_counter() - t0
+    lines = r.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print("    " + line)
+    if r.returncode != 0:
+        fail(f"(10a) the bench exited {r.returncode}: {r.stderr[-3000:]}")
+    try:
+        result = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        fail(f"(10a) the bench's last line is not a JSON object: {lines[-1:]}")
+    print(f"  (10a) bench line ({t:.1f} s with start-up): {lines[-1]}")
+    extra = result.get("extra", {})
+    missing = [k for k in bench.KEYS if k not in extra]
+    errors = [k for k in extra if k.endswith("_error")]
+    idle = [k for k, n in extra.get("launches", {}).items() if n <= 0]
+    if result.get("metric") != "cuda_decode_gbps_per_card_silesia" or not result.get("value", 0) > 0:
+        fail(f"(10a) the bench's headline is {result.get('metric')} = {result.get('value')}")
+    if result["vs_baseline"] != round(result["value"] / bench.BASELINE_DECODE_GBPS, 4):
+        fail(f"(10a) vs_baseline {result['vs_baseline']} is not value / 4.5")
+    if missing or errors or idle or len(extra.get("launches", {})) != 6:
+        fail(f"(10a) the bench's line lacks {missing}, has {errors}, launched no {idle}")
+    if extra["cuda_compress128_strict_parity"] != "128/128 (32 KiB blocks)":
+        fail(f"(10a) STRICT parity {extra['cuda_compress128_strict_parity']}")
+    print(f"  (10a) the bench's launches: {extra['launches']}")
+
+    meter = PathMeter("(10b, c) entry() and dryrun_multichip", ("decode128", "compress",
+                                                                 "decode_v4"))
+    fn, args = entry.entry()
+    out, out_len, status = fn(*args)
+    want = entry.example_payloads()
+    out_len = out_len.cpu().tolist()
+    got = [out[i, : out_len[i]].cpu().numpy().tobytes() for i in range(len(want))]
+    if status.cpu().tolist() != [0] * len(want) or got != want:
+        fail("(10b) entry()'s step does not decode its example batch to its payloads")
+    same("(10b) entry() against its plain version", (out, torch.tensor(out_len), status),
+         fn(*(a.cpu() for a in args)), labels=("out", "out_len", "status"))
+    meter.traffic["decode128"] += int(args[1].sum()) + sum(map(len, want))
+    print(f"  (10b) entry(): decode128 over {len(want)} blocks, every status 0, the payloads "
+          "and the plain version's tensors equal")
+    for n_devices, devices in ((torch.cuda.device_count(), None), (4, ["cuda:0"] * 4)):
+        frames = entry.dryrun_multichip(n_devices, devices=devices)
+        data = entry.dryrun_data(n_devices)
+        meter.compressed(frames["independent"], len(data))
+        meter.decoded("decode128", frames["independent"], len(data))
+        meter.compressed(frames["linked"], len(data), row_extra=65536)
+        meter.decoded("decode_v4", frames["linked"], len(data))
+        per = len(data) // n_devices
+        for f in frames["frames"]:
+            meter.compressed(f, per, row_extra=65536)
+            meter.decoded("decode128", f, per)
+    return {"10": meter.finish()}
+
+
 def profile_lane(members):
     """The largest member through phase 5: (a) 4 MiB independent lane
     blocks, (c) its 1 MiB segments as linked lane frames."""
@@ -2288,6 +2369,8 @@ def main() -> int:
     paths.update(phase_native(members, frames_4a, mirror_6, smi))
     phase("phase 9: F1, frames of one-byte blocks in bounded memory")
     phase_f1(smi)
+    phase("phase 10: the bench, entry() and dryrun_multichip")
+    paths.update(phase_bench_and_entry(scale))
     phase("")
 
     rows = []

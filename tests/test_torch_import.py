@@ -39,6 +39,7 @@ def test_import_leaves_jax_and_lz4tpu_out():
         "import sys, lz4tpu_torch, lz4tpu_torch.cli.dolz4, lz4tpu_torch.cli.delz4\n"
         "import lz4tpu_torch.interop, lz4tpu_torch.spec.hc, lz4tpu_torch.native\n"
         "import lz4tpu_torch.parallel.mesh, lz4tpu_torch.parallel.runner\n"
+        "import lz4tpu_torch.bench, lz4tpu_torch.entry\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'lz4tpu'))\n"
         "assert not bad, bad\n"
     )
@@ -76,6 +77,7 @@ def test_no_jax_or_lz4tpu_import_in_source(path):
 
 def _entry_points(tmp_path):
     import lz4tpu_torch as lt
+    from lz4tpu_torch import bench, entry
     from lz4tpu_torch.cli import delz4, dolz4
 
     frame = lt.compress_frame_parallel(b"abc" * 100, device="cpu")
@@ -117,6 +119,9 @@ def _entry_points(tmp_path):
                                                                 tmp_path / "r.lz4"),
         "run_sharded_decompress": lambda: lt.run_sharded_decompress(tmp_path / "in.lz4",
                                                                     tmp_path / "r.out"),
+        "entry": lambda: entry.entry(),
+        "dryrun_multichip": lambda: entry.dryrun_multichip(1),
+        "bench": lambda: bench.main(["0.125"]),
     }
 
 
@@ -129,7 +134,8 @@ def _entry_points(tmp_path):
     "compress_frame_parallel_lane", "compress_blocks_128", "compress_block",
     "decompress_block", "LZ4FrameReader", "CompressionSettings_level",
     "CompressionSettings_linked", "dolz4", "delz4", "dolz4_parallel", "make_mesh",
-    "local_mesh", "run_sharded_compress", "run_sharded_decompress",
+    "local_mesh", "run_sharded_compress", "run_sharded_decompress", "entry",
+    "dryrun_multichip", "bench",
 ]))
 def test_default_device_is_cuda_and_raises_without_it(name, monkeypatch, tmp_path):
     fn = _entry_points(tmp_path)[name]
