@@ -122,7 +122,19 @@ Phases, in order; any mismatch or exception exits non-zero:
    launch of each of the six kernels; (b) ``lz4tpu_torch.entry.entry()``'s
    step (decode128 over its example batch) against its payloads and its
    plain version; (c) ``dryrun_multichip`` on a mesh of every card and on
-   four entries of ``cuda:0``.
+   four entries of ``cuda:0``;
+11. the transport (``lz4tpu_torch/hostpack.py``: pinned staging, the copy
+   stream, units dispatched ``PIPELINE_DEPTH`` ahead): (a) a fetched result
+   held while later fetches and decodes take staging keeps its bytes; (b) a
+   frame of 64 KiB blocks decoded on one device and on three entries of
+   ``cuda:0``, linked frames in waves and the batched writer in 2 MiB
+   batches, at the budget and with it shrunk to groups of about 24 blocks,
+   twice each, equal to the content or to the one-launch frame; (c) the
+   device trace (torch.profiler) of phase 3's mozilla decompress and 5a's
+   mozilla compress: each memcpy kind with its largest copy and the busy
+   share, failing on a pageable copy over 8 KiB; (d) the launches of phases
+   3-8 and 9 beside those counted before the transport (``PERF.md``: B3,
+   R2), which at full scale must be equal.
 
 In phases 3 to 10 outputs must be byte-equal to the inputs, and every
 kernel of a path must have been launched on it: the launch counts are set
@@ -149,6 +161,12 @@ RUNNER_SHARD = 16 << 20  # phase 7 (d): the runner's shard, 13 of them at full s
 # phase 9: blocks of the F1 frames at 4 MiB and 64 KiB maxsize, and linked frames
 F1_BLOCKS = {"4 MiB": 25_000, "64 KiB": 200_000}
 F1_LINKED = 25_000
+# phase 11: the launches of phases 3-8 and of phase 9 at full scale, as the
+# runs before the transport (PERF.md: B3 for 3-8, R2 for 9) counted them
+LAUNCHES_3_8 = {"compress": 1552, "decode_big": 149, "compress128": 272, "decode128": 477,
+                "decode_v4": 709, "decode_v3": 1}
+LAUNCHES_9 = {"decode_big": 440, "decode128": 39, "decode_v4": 112}
+PAGEABLE_MAX = 8 << 10  # phase 11: the largest pageable copy a frame path may make
 
 
 def fail(msg: str) -> None:
@@ -2148,8 +2166,14 @@ def phase_f1(smi):
     from lz4tpu_torch.kernels.pack import DECODE_BUDGET, budget_groups
     from lz4tpu_torch.runtime import round_up
 
+    from lz4tpu_torch.parallel.pipeline import PIPELINE_DEPTH
+
     mib = 1 << 20
-    print(f"  card {smi}; DECODE_BUDGET {DECODE_BUDGET / mib:,.0f} MiB a device")
+    print(f"  card {smi}; DECODE_BUDGET {DECODE_BUDGET / mib:,.0f} MiB a device; "
+          f"PIPELINE_DEPTH {PIPELINE_DEPTH}")
+    if PIPELINE_DEPTH < 2:
+        fail("(9) the budget's bound is to hold with groups dispatched ahead (depth > 1)")
+    launches = {}
     frames = {name: f1_frame(F1_BLOCKS[name], bd) for name, bd in (("4 MiB", 0x70),
                                                                       ("64 KiB", 0x40))}
     maxsize = {"4 MiB": 4 * mib, "64 KiB": 64 << 10}
@@ -2166,6 +2190,8 @@ def phase_f1(smi):
         if got != want:
             fail(f"(9) {label}: the output differs from the content")
         groups = {n: r["launches"] for n, r in report.items() if r["launches"]}
+        for n, k in groups.items():
+            launches[n] = launches.get(n, 0) + k
         if not needed and groups:
             fail(f"(9) {label}: the native engine launched {groups}")
         print(f"    peak {peak / mib:,.1f} MiB of a bound of {bound / mib:,.1f} MiB; launches "
@@ -2202,6 +2228,7 @@ def phase_f1(smi):
              lambda: lt.decompress_frames_parallel([f for f, _ in linked]),
              [c for _, c in linked],
              DECODE_BUDGET + len(linked) * (16 + 1 + (64 << 10)) + 256 * mib, ("decode_big",))
+    return launches
 
 
 def phase_bench_and_entry(scale: float):
@@ -2274,6 +2301,186 @@ def phase_bench_and_entry(scale: float):
             meter.compressed(f, per, row_extra=65536)
             meter.decoded("decode128", f, per)
     return {"10": meter.finish()}
+
+
+def trace_call(label, fn, path):
+    """One warm call of ``fn`` under torch.profiler: from its Chrome trace,
+    each memcpy kind's copies, bytes and largest copy and the device time
+    of each kind of event, and the share of the call's wall in which the
+    card was busy (the union of its device intervals: the copy stream and
+    the kernels' stream overlap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    spans, copies, kinds = [], {}, {}
+    for e in events:
+        if e.get("ph") != "X" or e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        spans.append((float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+        kinds[e["cat"]] = kinds.get(e["cat"], 0.0) + float(e["dur"]) / 1e3
+        if e["cat"] == "gpu_memcpy":
+            nbytes = e.get("args", {}).get("bytes")
+            if nbytes is None:
+                fail(f"(11) {label}: the trace gives no size of a copy ({e['name']})")
+            c = copies.setdefault(e["name"], {"copies": 0, "bytes": 0, "largest": 0, "ms": 0.0})
+            c["copies"] += 1
+            c["bytes"] += int(nbytes)
+            c["largest"] = max(c["largest"], int(nbytes))
+            c["ms"] += float(e["dur"]) / 1e3
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    busy_ms = busy / 1e3
+    print(f"  {label}: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms "
+          f"({100 * busy_ms / wall_ms:.1f} %), device time by kind "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in sorted(kinds.items())))
+    for name, c in sorted(copies.items()):
+        print(f"    {name}: {c['copies']} copies, {c['bytes']:,d} B, largest {c['largest']:,d} B, "
+              f"{c['ms']:.2f} ms")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "copies": copies}
+
+
+def phase_transport(members, frames_3, paths, launches_9, scale: float):
+    """Slice 12's transport on the card (``lz4tpu_torch/hostpack.py`` and the
+    pipelined units of ``parallel/pipeline.py``): (a) staging reuse: a
+    fetched result held while later fetches and decodes take buffers keeps
+    its bytes, and a buffer let go is taken again; (b) a frame decoded on
+    one device and on three entries of ``cuda:0``, linked frames in waves
+    and the batched writer in 2 MiB batches, units dispatched ahead, at the
+    budget and with it shrunk to many groups, each run twice against the
+    content or the one-launch frame (a race between the copy stream and the
+    kernels' would show as other bytes now and then); (c) the device trace of phase 3's mozilla
+    decompress and of 5a's compress of mozilla: no frame path copies more
+    than ``PAGEABLE_MAX`` bytes through pageable memory; (d) the launches of
+    phases 3-8 and 9 beside B3's and R2's, equal at full scale."""
+    import numpy as np
+    import torch
+
+    import lz4tpu_torch as lt
+    from lz4tpu_torch import hostpack
+    from lz4tpu_torch.frame import compress as frame_compress
+    from lz4tpu_torch.kernels import pack
+    from lz4tpu_torch.parallel import pipeline
+
+    # (a) staging reuse
+    rng = np.random.default_rng(11)
+
+    def rows_of(seed):
+        items = [rng.integers(0, 256, int(n), dtype=np.uint8).tobytes()
+                 for n in np.random.default_rng(seed).integers(0, 1 << 16, 96)]
+        (rows, lens), = hostpack.upload("cuda", hostpack.Rows(items))
+        return rows, lens.cpu().numpy(), b"".join(items)
+
+    def address(fetched):
+        return np.frombuffer(fetched.buffer, np.uint8).ctypes.data
+
+    rows_a, lens_a, want_a = rows_of(1)
+    rows_b, lens_b, want_b = rows_of(2)
+    held = hostpack.fetch(rows_a, lens_a).wait()
+    first = address(held)
+    if b"".join(held) != want_a:
+        fail("(11a) a fetch differs from its upload")
+    for _ in range(4):
+        other = hostpack.fetch(rows_b, lens_b).wait()
+        if b"".join(other) != want_b or address(other) == first:
+            fail("(11a) a fetch differs from its upload, or took a buffer still held")
+        del other
+    data = members[list(members)[0]][: 8 << 20]
+    frame = lt.compress_frame_parallel(data, 65536, content_checksum=False)
+    payloads = [p for c, p, _ in pipeline._scan_frame(lt.LZ4FrameReader(frame))[0] if c]
+    decoded = pipeline._decode_payloads(payloads, 65536, b"", (torch.device("cuda"),))
+    snapshot = b"".join(decoded)
+    if b"".join(held) != want_a:
+        fail("(11a) a held result changed while later calls took staging")
+    del held
+    again = hostpack.fetch(rows_b, lens_b).wait()
+    reused = address(again) == first
+    pipeline._decode_payloads(payloads[::-1], 65536, b"", (torch.device("cuda"),))
+    if b"".join(decoded) != snapshot or b"".join(again) != want_b:
+        fail("(11a) decoded rows changed while a later decode took staging")
+    print(f"  (11a) staging reuse: held results unchanged over later fetches and decodes; a "
+          f"buffer let go {'was' if reused else 'was not'} taken by the next fetch")
+    del again, decoded
+
+    # (b) many units, several times each, at the budget and shrunk
+    budget = pack.DECODE_BUDGET
+    data = b"".join(d[: max(int(len(d) * min(scale, 0.1)), 1 << 20)]
+                    for d in members.values())[: 24 << 20]
+    frame = lt.compress_frame_parallel(data, 65536, content_checksum=True)
+    segs = [data[i : i + SEGMENT] for i in range(0, len(data), SEGMENT)]
+    linked = [lt.compress_frame_parallel(s, 65536, parallel_linked=True) for s in segs]
+    want_writer = lt.compress_frame_parallel(data, 65536, block_checksums=True)
+    calls = (
+        ("decompress_frame_parallel", lambda: lt.decompress_frame_parallel(frame), data),
+        ("read_all", lambda: lt.LZ4FrameReader(frame).read_all(), data),
+        ("mesh of 3 x cuda:0", lambda: lt.decompress_frame_parallel(
+            frame, mesh=lt.make_mesh(devices=["cuda:0"] * 3)), data),
+        ("linked waves", lambda: b"".join(lt.decompress_frames_parallel(linked)), data),
+        ("batched writer", lambda: lt.CompressionSettings().block_size(1 << 16)
+         .block_checksums(True).compress_bytes(data), want_writer),
+    )
+    old_batch = frame_compress.BATCH_BYTES
+    try:
+        frame_compress.BATCH_BYTES = 2 << 20
+        for shrunk in (False, True):
+            if shrunk:
+                pack.DECODE_BUDGET = 24 * (2 * 65536 + 64)  # groups of about 24 blocks
+            for k in range(2):
+                for label, fn, want in calls:
+                    if fn() != want:
+                        fail(f"(11b) {label} gave other bytes with units in flight (pass {k}, "
+                             f"budget {pack.DECODE_BUDGET:,d} B)")
+    finally:
+        pack.DECODE_BUDGET = budget
+        frame_compress.BATCH_BYTES = old_batch
+    print(f"  (11b) {len(data):,d} B at depth {pipeline.PIPELINE_DEPTH}: a frame of 64 KiB "
+          f"blocks (on one device and on 3 entries of cuda:0), {len(segs)} linked frames in "
+          "waves, the writer in 2 MiB batches; at the budget and at about 24 blocks a group: "
+          "bytes equal in 2 passes each")
+
+    # (c) the device trace of phase 3's mozilla decompress and 5a's compress
+    name = max(members, key=lambda m: len(members[m]))
+    path = os.path.join(HERE, "lz4tpu_torch", "_build", "transport_trace.json")
+    traces = {
+        "(11c) phase 3 decompress": trace_call(
+            f"(11c) phase 3's {name} decompress", lambda: lt.decompress_frame_parallel(
+                frames_3[name]), path),
+        "(11c) 5a compress": trace_call(
+            f"(11c) 5a's {name} compress (lane, 4 MiB blocks)", lambda: lt.compress_frame_parallel(
+                members[name], 4 << 20, lane_kernel=True), path),
+    }
+    for label, t in traces.items():
+        for kind, c in t["copies"].items():
+            if "Pageable" in kind and c["largest"] > PAGEABLE_MAX:
+                fail(f"{label}: a pageable copy of {c['largest']:,d} B ({kind})")
+    print(f"  (11c) no pageable copy over {PAGEABLE_MAX:,d} B on either trace")
+
+    # (d) launches beside the runs before the transport
+    counts = {}
+    for key, report in paths.items():
+        if key != "10":
+            for kernel, r in report.items():
+                counts[kernel] = counts.get(kernel, 0) + r["launches"]
+    for label, got, want in (("3-8", counts, LAUNCHES_3_8), ("9", launches_9, LAUNCHES_9)):
+        line = ", ".join(f"{k} {got.get(k, 0)} ({want.get(k, 0)})" for k in
+                         sorted(set(got) | set(want)) if got.get(k, 0) or want.get(k, 0))
+        print(f"  (11d) phases {label}: launches (before the transport): {line}")
+        if scale == 1.0 and {k: v for k, v in got.items() if v} != want:
+            fail(f"(11d) phases {label} launch other counts than before the transport")
+    return traces
 
 
 def profile_lane(members):
@@ -2368,9 +2575,11 @@ def main() -> int:
     phase("phase 8: the host engine (native): level(), threads(n), linked frames, CLI")
     paths.update(phase_native(members, frames_4a, mirror_6, smi))
     phase("phase 9: F1, frames of one-byte blocks in bounded memory")
-    phase_f1(smi)
+    launches_9 = phase_f1(smi)
     phase("phase 10: the bench, entry() and dryrun_multichip")
     paths.update(phase_bench_and_entry(scale))
+    phase("phase 11: the transport: staging, units in flight, the device trace")
+    phase_transport(members, frames_3, paths, launches_9, scale)
     phase("")
 
     rows = []

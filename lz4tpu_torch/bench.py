@@ -62,7 +62,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from . import build, native
+from . import build, hostpack, native
 from .frame.decompress import decompress_frame
 from .kernels import compress as kc
 from .kernels import compress128 as c128
@@ -70,7 +70,7 @@ from .kernels import decode128 as d128
 from .kernels import decodebig as dbig
 from .kernels import decompress_v3 as dv3
 from .kernels import decompress_v4 as dv4
-from .kernels.pack import budget_groups, fetch_rows, pack_prefixes, pack_rows
+from .kernels.pack import budget_groups, pack_rows
 from .kernels.status import OK, STATUS_OK
 from .parallel.mesh import make_mesh
 from .parallel.pipeline import compress_frame_parallel, decompress_frame_parallel
@@ -364,18 +364,17 @@ def decode_rate(run: Run, label: str, decoder, stats, blocks, comp, limit: int) 
     groups = budget_groups(len(comp), row)
     packed = []
     for lo, hi in groups:
-        rows, lens = pack_rows(comp[lo:hi], run.dev)
-        packed.append((rows, lens, *pack_prefixes(None, hi - lo, run.dev)))
+        packed.append(hostpack.upload_batch(run.dev, comp[lo:hi]))
     run.sync()
 
     def check(i, result):
-        out, out_len, status = result
+        handle = hostpack.Handle(*result)
         lo, hi = groups[i]
-        status = status.cpu().numpy()
+        out_len, status = handle.meta()
         bad = np.flatnonzero(status != OK)
         _expect(not len(bad), f"{label}: block {lo + (bad[0] if len(bad) else 0)} "
                               f"status {status[bad[:1]]}")
-        got = fetch_rows(out, out_len.cpu().numpy(), np.ones(hi - lo, bool))
+        got = handle.collect(out_len)
         for j, b in enumerate(got):
             _expect(b == blocks[lo + j], f"{label}: block {lo + j} decodes to other bytes")
 
@@ -469,9 +468,10 @@ def bench_compress(run: Run, blocks, comp, n_blocks: int = 128) -> float:
     run.sync()
 
     def check(_, result):
-        out, out_len, status, _tables = result
-        _expect(bool((status.cpu() == STATUS_OK).all()), "compress: a row did not compress")
-        got = fetch_rows(out, out_len.cpu().numpy(), np.ones(n, bool))
+        handle = hostpack.Handle(*result[:3])
+        out_len, status = handle.meta()
+        _expect(bool((status == STATUS_OK).all()), "compress: a row did not compress")
+        got = handle.collect(out_len)
         for i, c in enumerate(got):
             _expect(c == comp[i], f"compress: row {i} differs from the greedy parse")
 
@@ -502,8 +502,8 @@ def lane_rate(run: Run, label, blocks, prefixes, strict: bool, check) -> float:
 
 
 def lane_streams(result):
-    out, out_len, _, _ = result
-    return fetch_rows(out, out_len.cpu().numpy(), np.ones(out.shape[0], bool))
+    handle = hostpack.Handle(*result[:2])
+    return handle.collect(handle.meta()[0])
 
 
 def bench_compress128(run: Run, data: bytes, n_blocks: int = 128) -> float:
@@ -605,31 +605,37 @@ def bench_compressbig(run: Run, size_mb: float = 32.0, block_size: int = 4 << 20
 
 
 def bench_link(run: Run, mb: int = 256) -> None:
-    """Section 12: host-device copies of ``mb`` MiB of random bytes: H2D
-    as the port sends rows (``.to(device)`` of a pageable tensor, what
-    ``pack_rows`` ends in), D2H through ``fetch_rows``; beside them, both
-    ways through pinned host memory.  On the CPU there is no link: each
-    copy is a host copy (``clone``)."""
+    """Section 12: host-device copies of ``mb`` MiB of random bytes, 1 MiB
+    rows, through the frame paths' transport (``hostpack``): H2D as
+    ``hostpack.upload`` sends rows (one staging span, one copy, the rows
+    gathered on the device), D2H as a launch's rows are collected
+    (``hostpack.fetch``: compacted on the device into one staging span);
+    beside them, both ways through pinned host memory in one copy.  On the
+    CPU there is no link: each copy is a host copy."""
     row = 1 << 20
     n = mb * row
     host = torch.from_numpy(np.random.default_rng(7).integers(0, 256, n, dtype=np.uint8))
     want = host.numpy().tobytes()
+    items = [memoryview(want)[i * row : (i + 1) * row] for i in range(mb)]
     lens = np.full(mb, row)
-    keep = np.ones(mb, bool)
 
     def h2d(src, pinned=False):
         return src.to(run.dev, non_blocking=pinned) if run.on_card else src.clone()
 
     def same(t):
-        _expect(torch.equal(t.cpu() if run.on_card else t, host), "link: the copy differs")
+        _expect(torch.equal(t.cpu().view(-1) if run.on_card else t.view(-1), host),
+                "link: the copy differs")
 
     extra = run.extra
-    rate, dev = run.wall_rate("H2D pageable", lambda: h2d(host), n, same)
+    rate, (rows, _) = run.wall_rate("H2D hostpack.upload",
+                                    lambda: hostpack.upload(run.dev, hostpack.Rows(items))[0], n,
+                                    lambda got: same(got[0]))
     extra["link_h2d_mbps"] = mbps(rate)
-    rows = dev.view(mb, row)
-    rate, _ = run.wall_rate("D2H fetch_rows", lambda: fetch_rows(rows, lens, keep), n,
-                            lambda got: _expect(b"".join(got) == want, "link: fetch_rows differs"))
+    rate, _ = run.wall_rate("D2H hostpack.fetch", lambda: hostpack.fetch(rows, lens).wait(), n,
+                            lambda got: _expect(b"".join(got) == want,
+                                                "link: hostpack.fetch differs"))
     extra["link_d2h_mbps"] = mbps(rate)
+    dev = rows.view(-1)
 
     pinned = torch.empty(n, dtype=torch.uint8, pin_memory=run.on_card)
     pinned.copy_(host)
@@ -824,10 +830,11 @@ def main(argv=None, sizes=None) -> int:
     else:
         value = mixed64 / 1e9
         metric = "cuda_decode_gbps_per_card" if run.on_card else "cpu_decode_gbps"
+    value = round(value, 4)  # vs_baseline is the printed value's, not a second rounding's
     print(f"{metric} from {k('decode128')}: {value:.4f} GB/s on {device}")
     print(json.dumps({
         "metric": metric,
-        "value": round(value, 4),
+        "value": value,
         "unit": "GB/s",
         "vs_baseline": round(value / BASELINE_DECODE_GBPS, 4),
         "extra": run.extra,

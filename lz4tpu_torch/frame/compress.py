@@ -12,8 +12,9 @@ The block engine is one of three, or a callable with the spec's
 * ``"cuda"`` (the default) or a ``torch.device``: an independent-block
   frame is written in batches, the stream read ``BATCH_BYTES`` at a time
   (whole blocks), every block of a batch through one launch of the greedy
-  compressor (``parallel.pipeline._scalar_blocks``), so
-  ``compress(reader, writer)`` streams an input of any size;
+  compressor (``parallel.pipeline._scalar_dispatch``), the next batch
+  compressing while one is written, so ``compress(reader, writer)`` streams
+  an input of any size;
 * ``"cpu"``: the same batches on the kernels' plain versions;
 * ``"native"``: the host's C++ block codec (``lz4tpu_torch.native``), no
   card and no ``nvcc`` needed; an independent-block frame's blocks run on
@@ -38,7 +39,7 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import native
-from ..parallel.pipeline import _scalar_blocks
+from ..parallel.pipeline import _pipelined, _scalar_collect, _scalar_dispatch
 from ..runtime import host_u8, resolve_device
 from ..spec.block import Incompressible
 from ..spec.hc import compress_block_hc as spec_compress_block_hc
@@ -232,22 +233,35 @@ class CompressionSettings:
         """Independent blocks, ``BATCH_BYTES`` of input at a time: one
         greedy-compressor launch over every block of a batch, each block
         behind the dictionary with the primed template table, output capped
-        at the block's size (reference ``compress.rs:202-263``)."""
+        at the block's size (reference ``compress.rs:202-263``).  Batch
+        ``k + 1`` is read and launched before batch ``k`` is written, and the
+        blocks are written in order."""
         bs = self._block_size
         initializer = self._dictionary or b""
-        while True:
-            batch = _read_up_to(reader, max(BATCH_BYTES // bs, 1) * bs)
-            if not batch:
-                return
-            if content_hasher is not None:
-                content_hasher.update(batch)
-            payloads, lens = _scalar_blocks(host_u8(batch), bs, self._dictionary, False,
-                                            self._acceleration, (dev,))
+
+        def batches():
+            while True:
+                batch = _read_up_to(reader, max(BATCH_BYTES // bs, 1) * bs)
+                if not batch:
+                    return
+                if content_hasher is not None:
+                    content_hasher.update(batch)
+                yield 0, 0, batch
+
+        def dispatch(batch):
+            return _scalar_dispatch(host_u8(batch), bs, self._dictionary, self._acceleration,
+                                    dev)
+
+        def write(batch, launched):
+            lens, handle = launched
             mv = memoryview(batch)
-            for i, greedy in enumerate(payloads):
+            for i, greedy in enumerate(_scalar_collect(handle, lens)):
                 raw = mv[i * bs : i * bs + int(lens[i])]
                 data = initializer + raw if initializer else raw
                 self._write_block(writer, data, len(initializer), greedy, hc, flags, dev.type)
+
+        # two batches at most in flight: one written while the next compresses
+        _pipelined(batches(), dispatch, write, depth=2)
 
     def _template(self):
         """Dictionary priming: the template table and the block initializer."""

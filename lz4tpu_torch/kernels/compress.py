@@ -28,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import build
+from .. import build, hostpack
 from ..runtime import KernelStats, resolve_device, round_up, stream_handle
 from ..spec.block import (
     LAST_LITERALS,
@@ -396,36 +396,22 @@ def compress_blocks(
     if tables is None:
         tables = [U32Table() for _ in range(n_blocks)]
     width = round_up(max(max(len(d) for d in datas), 16), 16)
-    arr = np.zeros((n_blocks, width), np.uint8)
-    for i, d in enumerate(datas):
-        arr[i, : len(d)] = np.frombuffer(d, np.uint8)
     tbl, offs = tables_from_jax(tables)
-
-    def i32(vals):
-        return torch.tensor(vals, dtype=torch.int32, device=dev)
-
-    out, out_len, status, table_out = compress_batch(
-        torch.from_numpy(arr).to(dev),
-        i32([len(d) for d in datas]),
-        i32(cursors),
-        i32([-1 if c is None else int(c) for c in caps]),
-        i32([max(int(acceleration), 1)] * n_blocks),
-        offs.to(dev),
-        i32([1 if prime_prefix else 0] * n_blocks),
-        tbl.to(dev),
-        round_up(compress_bound(width), 16),
-    )
-    out_len = out_len.cpu().numpy()
-    status = status.cpu().numpy()
-    rows = out[:, : max(int(out_len.max()), 1)].cpu().numpy()
-    table_np = table_out.cpu().numpy().view(np.uint32)
+    params = np.array([[len(d) for d in datas], cursors,
+                       [-1 if c is None else int(c) for c in caps],
+                       [max(int(acceleration), 1)] * n_blocks, offs.numpy(),
+                       [1 if prime_prefix else 0] * n_blocks], np.int64).astype(np.int32)
+    (rows, _), params, tbl = hostpack.upload(dev, hostpack.Rows(datas, width=width), params, tbl)
+    handle = hostpack.Handle(*compress_batch(rows, *params, tbl,
+                                             round_up(compress_bound(width), 16)))
+    out_len, status, table_np = handle.meta()
+    stored = status == STATUS_INCOMPRESSIBLE
+    table_np = table_np.view(np.uint32)
+    rows = handle.collect(out_len, ~stored)
     outputs = []
     for i in range(n_blocks):
         tables[i].dict[:] = table_np[i].astype(tables[i].dict.dtype)
-        if status[i] == STATUS_INCOMPRESSIBLE:
-            outputs.append(None)
-        else:
-            outputs.append(rows[i, : out_len[i]].tobytes())
+        outputs.append(None if stored[i] else bytes(rows[i]))
     return outputs, tables
 
 

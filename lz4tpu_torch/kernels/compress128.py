@@ -54,7 +54,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import build
+from .. import build, hostpack
 from ..runtime import KernelStats, resolve_device, round_up, stream_handle
 from ..spec.block import WINDOW_SIZE, compress_bound
 from ..spec.table import U32_SLOTS
@@ -478,15 +478,9 @@ def compress_blocks_128(blocks, *, hashlog=None, prefixes=None, strict=False, de
         return []
     if strict and prefixes is not None and any(prefixes):
         raise ValueError("compress128: strict parity covers blocks without a window")
-    flat, base, n, cur0 = pack_lane_rows(blocks, prefixes)
-    out, out_len, _, _ = compress128(
-        torch.from_numpy(flat.copy()).to(dev),
-        torch.from_numpy(base).to(dev),
-        torch.from_numpy(n).to(dev),
-        torch.from_numpy(cur0).to(dev),
+    handle = hostpack.Handle(*compress128(
+        *hostpack.upload(dev, *pack_lane_rows(blocks, prefixes)),
         hashlog=HASHLOG if hashlog is None else hashlog,
         strict=strict,
-    )
-    out_len = out_len.cpu().numpy()
-    rows = out[:, : int(out_len.max())].cpu().numpy()
-    return [rows[i, : out_len[i]].tobytes() for i in range(len(blocks))]
+    ))
+    return [bytes(row) for row in handle.collect(handle.meta()[0])]

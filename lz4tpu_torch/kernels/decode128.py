@@ -30,10 +30,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .. import build
+from .. import build, hostpack
 from ..runtime import KernelStats, resolve_device, round_up, stream_handle
 from ..spec.block import WINDOW_SIZE
-from .pack import budget_groups, check_decoded, fetch_rows, pack_prefixes, pack_rows
+from .pack import budget_groups, check_decoded
 from .status import (
     ERR_INVALID_OFFSET,
     ERR_MEMORY_LIMIT,
@@ -243,15 +243,15 @@ def decompress_batch(decoder, blocks, block_maxsize: int, prefixes, device):
 
 
 def _decode_group(decoder, blocks, block_maxsize, prefixes, dev):
-    """One launch of ``decompress_batch``; its tensors are freed on return."""
-    comp, comp_len = pack_rows(blocks, dev)
-    prefix, prefix_len = pack_prefixes(prefixes, len(blocks), dev)
-    out, out_len, status = decoder(comp, comp_len, prefix, prefix_len, block_maxsize)
-    out_len = out_len.cpu().numpy()
-    bad = check_decoded(status.cpu().numpy(), out_len)
+    """One launch of ``decompress_batch`` (its inputs in one upload, its
+    rows in one fetch); its tensors are freed on return."""
+    handle = hostpack.Handle(*decoder(*hostpack.upload_batch(dev, blocks, prefixes),
+                                      block_maxsize))
+    out_len, status = handle.meta()
+    bad = check_decoded(status, out_len)
     if bad is not None:
         raise bad[1]
-    return fetch_rows(out, out_len, np.ones(len(blocks), bool))
+    return [bytes(row) for row in handle.collect(out_len)]
 
 
 def decompress_blocks_128(blocks, block_maxsize: int = 1 << 14, prefixes=None, device=None):

@@ -1,22 +1,16 @@
-"""Host-side batch packing for the decoders (the port's counterpart of
-``lz4tpu/hostpack.py`` and of the wrappers' packing code).
-
-A batch goes to the card as one padded uint8 tensor (one H2D copy), the
-kernel runs once, the per-block lengths and statuses come back first, and
-then only the bytes that were asked for: rows are compacted on the card
-into one flat tensor and copied back in one D2H copy.  A batched decode is
-cut into groups of whole blocks, in order, each under ``DECODE_BUDGET``
-(``budget_groups``), so that its memory grows with what a frame holds, not
-with its blocks times ``block_maxsize``.
+"""The decoders' batch bookkeeping: a batched decode is cut into groups of
+whole blocks, in order, each under ``DECODE_BUDGET`` (``budget_groups``),
+so that its memory grows with what a frame holds, not with its blocks
+times ``block_maxsize``; ``check_decoded`` finds a launch's first failing
+block.  The transfers are ``lz4tpu_torch/hostpack.py``'s: ``pack_rows``
+and ``pack_prefixes`` are calls into it.
 """
 
 from __future__ import annotations
 
 import numpy as np
-import torch
 
-from ..runtime import round_up
-from ..spec.block import WINDOW_SIZE
+from .. import hostpack
 from .status import OK
 
 #: bytes of output and compressed rows that one decode launch may hold on
@@ -34,61 +28,20 @@ def budget_groups(n: int, row_bytes: int):
 
 def pack_rows(items, device, align_right: bool = False):
     """Byte strings -> ((N, W) uint8 tensor on ``device``, (N,) int32
-    lengths).  ``W`` is the longest item rounded up to 16 bytes."""
-    lens = np.array([len(b) for b in items], dtype=np.int32)
-    width = round_up(int(lens.max(initial=0)), 16)
-    arr = np.zeros((len(items), width), np.uint8)
-    for i, b in enumerate(items):
-        if len(b):
-            if align_right:
-                arr[i, width - len(b) :] = np.frombuffer(b, np.uint8)
-            else:
-                arr[i, : len(b)] = np.frombuffer(b, np.uint8)
-    return torch.from_numpy(arr).to(device), torch.from_numpy(lens).to(device)
+    lengths), ``W`` the longest item rounded up to 16 bytes: one
+    ``hostpack.upload``."""
+    (rows, lens), = hostpack.upload(device, hostpack.Rows(items, align_right))
+    return rows, lens
 
 
 def pack_prefixes(prefixes, n_blocks: int, device):
-    """Per-block prefixes -> ((Np, P) right-aligned rows, (N,) lengths).
-
-    Only a prefix's trailing 64 KiB is addressable.  ``None`` gives an
-    empty (1, 0) row; one prefix shared by every block (a dictionary)
-    gives a single row that the kernels read with stride 0."""
-    if prefixes is None:
-        return (
-            torch.zeros((1, 0), dtype=torch.uint8, device=device),
-            torch.zeros(n_blocks, dtype=torch.int32, device=device),
-        )
-    prefixes = [bytes(p)[-WINDOW_SIZE:] for p in prefixes]
-    if len(prefixes) != n_blocks:
+    """Per-block prefixes -> ((Np, P) right-aligned rows, (N,) lengths), as
+    ``hostpack.upload_batch`` packs them: ``None`` gives an empty (1, 0)
+    row; one prefix shared by every block (a dictionary) gives a single row
+    that the kernels read with stride 0."""
+    if prefixes is not None and len(prefixes) != n_blocks:
         raise ValueError(f"{len(prefixes)} prefixes for {n_blocks} blocks")
-    first = prefixes[0]
-    if all(p == first for p in prefixes):
-        rows, _ = pack_rows([first], device, align_right=True)
-        return rows, torch.full((n_blocks,), len(first), dtype=torch.int32, device=device)
-    return pack_rows(prefixes, device, align_right=True)
-
-
-def fetch_rows(out: torch.Tensor, out_len: np.ndarray, keep: np.ndarray):
-    """Rows ``out[i, :out_len[i]]`` for ``keep[i]`` -> list of bytes (None
-    where not kept), compacted on the device and copied back at once."""
-    lens = np.where(keep, out_len, 0).astype(np.int64)
-    if out.is_cuda:
-        flat = compact_rows(out, lens).cpu().numpy()
-    else:
-        flat = np.concatenate([out[i, : lens[i]].numpy() for i in range(len(lens))] or
-                              [np.zeros(0, np.uint8)])
-    ends = np.cumsum(lens)
-    res = []
-    for i in range(len(lens)):
-        res.append(flat[ends[i] - lens[i] : ends[i]].tobytes() if keep[i] else None)
-    return res
-
-
-def compact_rows(out: torch.Tensor, lens) -> torch.Tensor:
-    """``out[i, :lens[i]]`` for every row, concatenated into one flat
-    tensor on ``out``'s device."""
-    parts = [out[i, : int(n)] for i, n in enumerate(lens) if n]
-    return torch.cat(parts) if parts else out.new_zeros(0)
+    return hostpack.upload_batch(device, [b""] * n_blocks, prefixes)[2:]
 
 
 def check_decoded(status: np.ndarray, out_len: np.ndarray, block_maxsize=None):

@@ -81,7 +81,7 @@ def splice_streams(payloads, tails=None) -> bytes:
     pending = []  # literal runs of the streams whose tail is still open
     last = len(payloads) - 1
     for idx, p in enumerate(payloads):
-        p = bytes(p)
+        p = memoryview(p).cast("B")  # no copy of a stream: its pieces go to ``out``
         if idx < last:
             tpos, tlit = tail_split(p) if tails is None else tails[idx]
             body = p[:tpos]

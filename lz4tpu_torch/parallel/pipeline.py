@@ -2,22 +2,29 @@
 (a decode: one launch a group of blocks under ``DECODE_BUDGET``).
 
 Counterpart of ``lz4tpu/parallel/pipeline.py``.  Independent-block frames
-are embarrassingly parallel: the frame's blocks go to the card as one
-padded uint8 tensor (one H2D copy), each kernel runs once over all of them,
-the lengths and statuses come back first and then only the bytes needed
-(one D2H copy), and the host assembles the frame in order.
+are embarrassingly parallel: the frame's blocks go to the card in one
+upload (``hostpack.upload``: pinned staging, one copy on the copy stream,
+the padded rows gathered on the device), each kernel runs once over all of
+them, the lengths and statuses come back right after it without blocking,
+then only the bytes needed, compacted on the device into one staging
+buffer (``hostpack.Handle``), and the host assembles the frame in order
+from ``memoryview`` rows of it.  The units of a call (a mesh's ranges, a
+decode's groups, the waves' groups) run through ``_pipelined``: unit
+``k + 1`` is uploaded and launched before unit ``k`` is read, up to
+``PIPELINE_DEPTH`` in flight and, on one mesh entry, at most
+``DECODE_BUDGET`` of rows in flight together.
 
 Every entry point takes ``device`` (one device) or ``mesh`` (a
 ``parallel.mesh.Mesh``, this process's cards; not both).  On a mesh the
 frame's blocks are cut into one contiguous range per entry
 (``mesh.shard_bounds``), whole output blocks for the lane compressor; each
-range goes to its card in one H2D copy that also carries what its first
+range goes to its card in one upload that also carries what its first
 block may look back at (in a linked frame the 64 KiB of input before the
 range: the JAX package's ring halo), and its kernel is launched on that
 card's stream.  Every range is launched before any range's results are
-read, then the results are joined in frame order, so a frame is
-byte-identical at every mesh size and a decode raises the first failing
-block in frame order.  An entry that gets no block gets no launch.
+read (up to ``PIPELINE_DEPTH``), then the results are joined in frame
+order, so a frame is byte-identical at every mesh size and a decode raises
+the first failing block in frame order.  An entry that gets no block gets no launch.
 
 * ``compress_frame_parallel`` — independent mode is byte-identical to the
   streaming writer (and to the JAX package's ``compress_frame_parallel``)
@@ -64,8 +71,12 @@ The streaming API takes the same one-launch paths for independent frames:
 
 from __future__ import annotations
 
+from collections import Counter, deque
+
 import numpy as np
 import torch
+
+from .. import hostpack
 
 from ..frame.errors import BlockChecksumFail, BlockSizeOverflow, FrameChecksumFail, InvalidBlockSize
 from ..frame.header import INCOMPRESSIBLE, MAGIC, BlockDescriptor, Flags
@@ -74,14 +85,8 @@ from ..kernels.compress128 import MAX_B, compress128
 from ..kernels.decode128 import MAX_BLOCK, decode128
 from ..kernels.decodebig import decode_big
 from ..kernels.decompress_v4 import decode_v4
-from ..kernels.pack import (
-    budget_groups,
-    check_decoded,
-    compact_rows,
-    fetch_rows,
-    pack_prefixes,
-    pack_rows,
-)
+from ..kernels import pack
+from ..kernels.pack import budget_groups, check_decoded
 from ..kernels.splice import splice_streams
 from ..kernels.status import OK, STATUS_INCOMPRESSIBLE, STATUS_TO_KIND
 from ..runtime import host_u8, resolve_device, round_up
@@ -91,6 +96,11 @@ from ..spec.xxhash32 import xxh32
 from ..utils.hashing import make_hasher
 from ..utils.hashing import xxh32 as payload_xxh32
 from .mesh import shard_bounds
+
+#: units (decode groups, mesh ranges, waves' groups) dispatched ahead of
+#: the oldest one read, as ``lz4tpu``'s ``PIPELINE_DEPTH``; the units of a
+#: mesh entry in flight together also stay under ``DECODE_BUDGET``
+PIPELINE_DEPTH = 8
 
 
 def _frame_header(flags: Flags, bd: BlockDescriptor, content_size, dictionary_id) -> bytes:
@@ -108,19 +118,26 @@ def _frame_header(flags: Flags, bd: BlockDescriptor, content_size, dictionary_id
 def _linked_rows(padded, n_blocks: int, block_size: int, full_first: bool):
     """Rows ``[the 64 KiB before block i | block i]`` of a linked range, cut
     on the device with one strided gather from ``padded`` = ``[the 64 KiB
-    before the range | the range's blocks, padded whole]``, and each row's
-    cursor.  A block whose window is not full (the frame's block 0 without
-    a dictionary of at least 64 KiB) is laid out and parsed as an
-    independent block at cursor 0: an unprimed table's empty slots alias
+    before the range | the range's blocks, padded whole]``.  A block whose
+    window is not full (the frame's block 0 without a dictionary of at
+    least 64 KiB) is laid out as an independent block, to be parsed at
+    cursor 0 (``_linked_cursors``): an unprimed table's empty slots alias
     buffer position 0, which is only safe to parse from there."""
     w = WINDOW_SIZE
     rows = padded.as_strided((n_blocks, w + block_size), (block_size, 1)).contiguous()
-    cursors = np.full(n_blocks, w, np.int32)
     if not full_first:
         rows[0, :block_size] = padded[w : w + block_size].clone()  # rows may alias padded
         rows[0, block_size:] = 0
+    return rows
+
+
+def _linked_cursors(n_blocks: int, full_first: bool) -> np.ndarray:
+    """Each linked row's cursor: 64 KiB, or 0 for a first block without a
+    full window (``_linked_rows``)."""
+    cursors = np.full(n_blocks, WINDOW_SIZE, np.int32)
+    if not full_first:
         cursors[0] = 0
-    return rows, cursors
+    return cursors
 
 
 def _block_lens(n: int, block_size: int) -> np.ndarray:
@@ -138,102 +155,138 @@ def _ranges(n_items: int, devs):
             if hi > lo]
 
 
+def _pipelined(units, dispatch, collect, depth=None) -> None:
+    """Run ``units`` (``(entry, cost, work)``) in order with up to ``depth``
+    (``PIPELINE_DEPTH``) dispatched before the oldest is collected, and at most
+    ``DECODE_BUDGET`` of ``cost`` in flight on one mesh entry (a unit over
+    it alone runs alone there).  ``dispatch(work)`` uploads and launches
+    without waiting and returns a handle, or ``None`` when nothing stays in
+    flight; ``collect(work, handle)`` waits for it.  Units are collected in
+    the order given; when ``collect`` raises, the units still in flight
+    are dropped unread."""
+    depth = PIPELINE_DEPTH if depth is None else depth
+    flight = deque()
+    held = Counter()
+    for entry, cost, work in units:
+        while flight and (len(flight) >= depth
+                          or (held[entry] and held[entry] + cost > pack.DECODE_BUDGET)):
+            done_entry, done_cost, done, handle = flight.popleft()
+            held[done_entry] -= done_cost
+            collect(done, handle)
+        handle = dispatch(work)
+        if handle is not None:
+            flight.append((entry, cost, work, handle))
+            held[entry] += cost
+    while flight:
+        _, _, done, handle = flight.popleft()
+        collect(done, handle)
+
+
 def _scalar_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, acceleration,
                    dev):
-    """Blocks ``lo:hi`` of the frame through the scalar greedy compressor,
-    one launch on ``dev``, not waited for: the kernel's (out, out_len,
-    status)."""
+    """Blocks ``lo:hi`` of the frame through the scalar greedy compressor:
+    their bytes in one upload, one launch on ``dev``, not waited for: a
+    ``hostpack.Handle`` of the output rows, lengths and statuses."""
     w = WINDOW_SIZE
     d = len(dictionary or b"")
     n_blocks = hi - lo
     lens = lens[lo:hi]
     a = lo * block_size
     b = a + int(lens.sum())
-    cursors = np.zeros(n_blocks, np.int32)
-    prime = np.zeros(n_blocks, np.int32)
+    template = U32Table()
     if parallel_linked:
-        # one H2D copy of the range behind the 64 KiB of input before it
-        # (every block is at least 64 KiB, so a range past the first has a
-        # full window); the frame's first block is behind the dictionary's tail
+        # the range behind the 64 KiB of input before it (every block is at
+        # least 64 KiB, so a range past the first has a full window); the
+        # frame's first block is behind the dictionary's tail
         halo = min(a, w)
-        padded = torch.zeros(w + n_blocks * block_size, dtype=torch.uint8, device=dev)
-        padded[w - halo : w + b - a].copy_(src[a - halo : b])
-        if lo == 0 and d >= w:
-            padded[:w].copy_(torch.frombuffer(bytearray(dictionary[-w:]), dtype=torch.uint8))
-        rows, cursors = _linked_rows(padded, n_blocks, block_size, lo > 0 or d >= w)
-        prime = cursors > 0
+        head = dictionary[-w:] if lo == 0 and d >= w else b""
+        full_first = lo > 0 or d >= w
+        cursors = _linked_cursors(n_blocks, full_first)
     else:
-        # one H2D copy of the range, padded to whole blocks on the device
+        halo = 0
+        head = dictionary or b""
+        cursors = np.full(n_blocks, d, np.int32)
+        if d:
+            # every template position sits behind the cursor (buffer
+            # coordinates equal dictionary coordinates), so the primed table is
+            # shared.  Linked rows hold only the dictionary's tail, in other
+            # coordinates: their tables are primed in the kernel instead
+            prime_u32_table(template, dictionary)
+    prime = (cursors > 0) if parallel_linked else np.zeros(n_blocks, bool)
+    params = np.stack([lens + cursors, cursors, lens,  # output capped at input size
+                       np.full(n_blocks, max(int(acceleration), 1)), np.zeros(n_blocks),
+                       prime]).astype(np.int32)
+    parts = [src[a - halo : b], params] + ([head] if head else [])
+    if d and not parallel_linked:
+        parts.append(template.dict.view(np.int32))
+    content, params, *rest = hostpack.upload(dev, *parts)
+    if parallel_linked:
+        padded = torch.zeros(w + n_blocks * block_size, dtype=torch.uint8, device=dev)
+        padded[w - halo : w + b - a].copy_(content)
+        if head:
+            padded[:w].copy_(rest[0])
+        rows = _linked_rows(padded, n_blocks, block_size, full_first)
+    else:
+        # the range padded to whole blocks on the device
         flat = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
-        flat[: b - a].copy_(src[a:b])
+        flat[: b - a].copy_(content)
         rows = flat.view(n_blocks, block_size)
         if d:
-            cursors[:] = d
             buf = torch.empty((n_blocks, d + block_size), dtype=torch.uint8, device=dev)
-            buf[:, :d] = torch.frombuffer(bytearray(dictionary), dtype=torch.uint8).to(dev)
+            buf[:, :d] = rest[0]
             buf[:, d:] = rows
             rows = buf
-    template = U32Table()
     if d and not parallel_linked:
-        # every template position sits behind the cursor (buffer coordinates
-        # equal dictionary coordinates), so the primed table is shared.  Linked
-        # rows hold only the dictionary's tail, in other coordinates: their
-        # tables are primed in the kernel instead
-        prime_u32_table(template, dictionary)
-    tables = (
-        torch.from_numpy(template.dict.view(np.int32).copy())
-        .to(dev)
-        .expand(n_blocks, U32_SLOTS)
-        .contiguous()
-    )
-
-    def i32(vals):
-        return torch.from_numpy(np.ascontiguousarray(vals, dtype=np.int32)).to(dev)
-
-    caps = lens  # output capped at input size: incompressible fallback
+        tables = rest[1].expand(n_blocks, U32_SLOTS).contiguous()
+    else:
+        tables = torch.zeros((n_blocks, U32_SLOTS), dtype=torch.int32, device=dev)
     out, out_len, status, _ = compress_batch(
-        rows,
-        i32(lens + cursors),
-        i32(cursors),
-        i32(caps),
-        i32(np.full(n_blocks, max(int(acceleration), 1))),
-        i32(np.zeros(n_blocks)),
-        i32(prime),
-        tables,
-        round_up(block_size + 16, 16),
-    )
-    return out, out_len, status
+        rows, *params, tables, round_up(block_size + 16, 16))
+    return hostpack.Handle(out, out_len, status)
+
+
+def _scalar_collect(handle, lens):
+    """The payloads of a ``_scalar_launch`` over blocks of ``lens``: a
+    ``memoryview`` a block, ``None`` where it is stored raw."""
+    out_len, status = handle.meta()
+    return list(handle.collect(out_len, (status != STATUS_INCOMPRESSIBLE) & (lens > 0)))
+
+
+def _scalar_dispatch(src, block_size, dictionary, acceleration, dev):
+    """An independent batch of whole blocks in one launch, not waited for
+    (the batched writer's unit): (lens, handle) for ``_scalar_collect``."""
+    lens = _block_lens(src.numel(), block_size)
+    return lens, _scalar_launch(src, 0, len(lens), lens, block_size, dictionary, False,
+                                acceleration, dev)
 
 
 def _scalar_blocks(src, block_size, dictionary, parallel_linked, acceleration, devs):
     """The frame's blocks through the scalar greedy compressor, one launch
-    on each device of ``devs`` (a mesh's) that gets a range of them:
-    (payloads, lens), a payload ``None`` where the block is stored raw."""
+    on each device of ``devs`` (a mesh's) that gets a range of them, each
+    range dispatched before the ranges before it are read: (payloads,
+    lens), a payload ``None`` where the block is stored raw."""
     lens = _block_lens(src.numel(), block_size)
-    # every range's copy and launch before any range's lengths are read: a
-    # read waits for its card, and the cards after it would wait with it
-    launched = [(lo, hi, _scalar_launch(src, lo, hi, lens, block_size, dictionary,
-                                        parallel_linked, acceleration, dev))
-                for lo, hi, dev in _ranges(len(lens), devs)]
     payloads = []
-    for lo, hi, (out, out_len, status) in launched:
-        out_len = out_len.cpu().numpy()
-        stored = status.cpu().numpy() == STATUS_INCOMPRESSIBLE
-        payloads += fetch_rows(out, out_len, ~stored & (lens[lo:hi] > 0))
+    _pipelined(
+        ((r, 0, (lo, hi, dev)) for r, (lo, hi, dev) in enumerate(_ranges(len(lens), devs))),
+        lambda work: _scalar_launch(src, *work[:2], lens, block_size, dictionary,
+                                    parallel_linked, acceleration, work[2]),
+        lambda work, handle: payloads.extend(_scalar_collect(handle, lens[work[0]:work[1]])))
     return payloads, lens
 
 
 def _lane_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, chunk_windows,
                  dev):
     """Output blocks ``lo:hi`` of the frame through the lane compressor,
-    one launch over all their chunks on ``dev``, not waited for: the
-    kernel's (out, out_len, tail_pos, tail_lit).
+    their bytes in one upload and one launch over all their chunks on
+    ``dev``, not waited for: a ``hostpack.Handle`` of the output rows,
+    lengths and tails.
 
     A chunk's row is cut from one flat source on the device by its base
     offset: the 64 KiB before the chunk, stopped at ``floor``, the first
     byte its block may refer to.  Linked frames: the source is ``[dictionary
     tail | input]`` (for a range past the first, the 64 KiB of input before
-    it in the same H2D copy) and the floor its start.  Independent frames:
+    it in the same upload) and the floor its start.  Independent frames:
     a window stays inside the chunk's own output block, whose source
     segment is ``[dictionary tail | block]``, so what lies before the
     segment is neither primed nor matched."""
@@ -247,32 +300,17 @@ def _lane_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, chu
     chunk_len = np.minimum(chunk, n - idx * chunk)
     tail = (dictionary or b"")[-WINDOW_SIZE:]
     d = len(tail)
-
-    if parallel_linked and lo:
-        # a range past the first: its one H2D copy starts 64 KiB before it
-        d = WINDOW_SIZE
-        flat = src[a - d : a + n].to(dev)
-    else:
-        data = src[a : a + n].to(dev)  # the one H2D copy of the range
-        if d:
-            tail_dev = torch.frombuffer(bytearray(tail), dtype=torch.uint8).to(dev)
-        if parallel_linked:
-            flat = torch.cat([tail_dev, data]) if d else data
+    linked_range = parallel_linked and lo
+    if linked_range:
+        d = WINDOW_SIZE  # a range past the first starts 64 KiB before it
     if parallel_linked:
         start = d + idx * chunk
         floor = np.zeros(n_chunks, np.int64)
     elif d:
         segment = d + block_size
-        buf = torch.zeros((n_blocks, segment), dtype=torch.uint8, device=dev)
-        buf[:, :d] = tail_dev
-        padded = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
-        padded[:n] = data
-        buf[:, d:] = padded.view(n_blocks, block_size)
-        flat = buf.view(-1)
         floor = (idx // cpb) * segment
         start = floor + d + (idx % cpb) * chunk
     else:
-        flat = data
         start = idx * chunk
         floor = (idx // cpb) * block_size
     # a dictionary is only addressable through a gapless window, so with one
@@ -282,39 +320,57 @@ def _lane_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, chu
     else:
         base = start
     cur0 = (start - base).astype(np.int32)
-    return compress128(
-        flat,
-        torch.from_numpy(base).to(dev),
-        torch.from_numpy(cur0 + chunk_len.astype(np.int32)).to(dev),
-        torch.from_numpy(cur0).to(dev),
-    )
+    parts = [src[a - d : a + n] if linked_range else src[a : a + n], base,
+             cur0 + chunk_len.astype(np.int32), cur0]
+    data, base, ends, cur0, *rest = hostpack.upload(
+        dev, *parts, *([tail] if d and not linked_range else []))
+    if linked_range:
+        flat = data
+    elif parallel_linked:
+        flat = torch.cat([rest[0], data]) if d else data
+    elif d:
+        buf = torch.zeros((n_blocks, segment), dtype=torch.uint8, device=dev)
+        buf[:, :d] = rest[0]
+        padded = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
+        padded[:n] = data
+        buf[:, d:] = padded.view(n_blocks, block_size)
+        flat = buf.view(-1)
+    else:
+        flat = data
+    return hostpack.Handle(*compress128(flat, base, ends, cur0))
 
 
 def _lane_blocks(src, block_size, dictionary, parallel_linked, chunk_windows, devs):
     """The frame's blocks through the lane compressor, one launch on each
     device of ``devs`` that gets a range of output blocks (never a range of
-    chunks: the chunk streams of a block are spliced together): (payloads,
-    lens), a payload ``None`` where the block is stored raw."""
+    chunks: the chunk streams of a block are spliced together), each range
+    dispatched before the ranges before it are read: (payloads, lens), a
+    payload ``None`` where the block is stored raw."""
     n = src.numel()
     cpb = block_size // min(block_size, MAX_B)
     lens = _block_lens(n, block_size)
     if n == 0:
         return [None], lens
-    launched = [(lo, hi, _lane_launch(src, lo, hi, lens, block_size, dictionary,
-                                      parallel_linked, chunk_windows, dev))
-                for lo, hi, dev in _ranges(len(lens), devs)]
     payloads = []
-    for lo, hi, (out, out_len, tail_pos, tail_lit) in launched:
-        out_len, tail_pos, tail_lit = torch.stack([out_len, tail_pos, tail_lit]).cpu().numpy()
-        streams = fetch_rows(out, out_len, np.ones(len(out_len), bool))
+
+    def collect(work, handle):
+        lo, hi, _ = work
+        out_len, tail_pos, tail_lit = handle.meta()
         tails = list(zip(tail_pos.tolist(), tail_lit.tolist()))
+        streams = handle.collect(out_len)
         for ob in range(hi - lo):
             c0, c1 = ob * cpb, min((ob + 1) * cpb, len(streams))
-            payload = streams[c0] if c1 - c0 == 1 else splice_streams(streams[c0:c1],
-                                                                      tails[c0:c1])
+            payload = streams[c0] if c1 - c0 == 1 else splice_streams(
+                [streams[c] for c in range(c0, c1)], tails[c0:c1])
             # the lane kernel has no output cap: a block that did not shrink
             # is stored raw, as the capped scalar parse would have it
             payloads.append(payload if len(payload) <= lens[lo + ob] else None)
+
+    _pipelined(
+        ((r, 0, work) for r, work in enumerate(_ranges(len(lens), devs))),
+        lambda work: _lane_launch(src, *work[:2], lens, block_size, dictionary,
+                                  parallel_linked, chunk_windows, work[2]),
+        collect)
     return payloads, lens
 
 
@@ -512,10 +568,13 @@ def decompress_frame_parallel(
 def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None):
     """The compressed payloads of an independent frame, decoded on each
     device of ``devs`` (a mesh's) that gets a range of them, one launch a
-    group of blocks under ``DECODE_BUDGET`` (the budget is per device);
-    raises the first failing block's error in frame order (the decoder's
-    ``DecodeError``, or ``BlockSizeOverflow`` for a block that decoded past
-    ``block_maxsize``)."""
+    group of blocks under ``DECODE_BUDGET`` (the budget is per device or
+    mesh entry), group ``g + 1`` dispatched before group ``g`` is read
+    (``_pipelined``): the decoded blocks as ``memoryview`` rows in frame
+    order.  Raises the first failing block's error in frame order (the
+    decoder's ``DecodeError``, or ``BlockSizeOverflow`` for a block that
+    decoded past ``block_maxsize``); groups in flight after it are
+    dropped."""
     if not payloads:
         return []
     if lane_kernel is False:
@@ -529,45 +588,46 @@ def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None
     ranges = _ranges(len(payloads), devs)
     groups = [[(lo + a, lo + b) for a, b in budget_groups(hi - lo, out_capacity + width)]
               for lo, hi, _ in ranges]
-    outputs = [[] for _ in ranges]
+    # group g of every range before group g + 1 of any, so that the ranges'
+    # cards work side by side
+    units = [(r, (b - a) * (out_capacity + width), (a, b, ranges[r][2]))
+             for g in range(max(map(len, groups)))
+             for r, cuts in enumerate(groups) if g < len(cuts) for a, b in cuts[g:g + 1]]
+    fetched = {}
     first_bad = None  # (block index, error): no group from there on need run
-    for g in range(max(map(len, groups))):
-        # group g of every range launched before the first lengths are read
-        launched = []
-        for r, cuts in enumerate(groups):
-            if g < len(cuts) and (first_bad is None or cuts[g][0] < first_bad[0]):
-                a, b = cuts[g]
-                launched.append((r, a, _launch_decode(decoder, payloads[a:b], block_maxsize,
-                                                      dictionary, out_capacity, ranges[r][2])))
-        for r, a, result in launched:
-            rows, bad = _read_decoded(result, block_maxsize)
-            if bad is not None and (first_bad is None or a + bad[0] < first_bad[0]):
-                first_bad = (a + bad[0], bad[1])
-            outputs[r].append(rows)
-        launched = result = None  # this round's outputs freed before the next round's
+
+    def dispatch(work):
+        a, b, dev = work
+        if first_bad is not None and a >= first_bad[0]:
+            return None
+        return _launch_decode(decoder, payloads[a:b], block_maxsize, dictionary, out_capacity,
+                              dev)
+
+    def collect(work, handle):
+        nonlocal first_bad
+        a = work[0]
+        if first_bad is not None and a >= first_bad[0]:
+            return
+        out_len, status = handle.meta()
+        bad = check_decoded(status, out_len, block_maxsize)
+        if bad is None:
+            fetched[a] = handle.collect(out_len)
+        elif first_bad is None or a + bad[0] < first_bad[0]:
+            first_bad = (a + bad[0], bad[1])
+
+    _pipelined(units, dispatch, collect)
     if first_bad is not None:
         raise first_bad[1]
-    return [row for parts in outputs for rows in parts for row in rows]
+    return [row for a in sorted(fetched) for row in fetched[a]]
 
 
 def _launch_decode(decoder, payloads, block_maxsize, dictionary, out_capacity, dev):
-    """One launch of ``decoder`` over ``payloads`` on ``dev``, not waited
-    for: the kernel's (out, out_len, status)."""
-    comp, comp_len = pack_rows(payloads, dev)
-    prefix, prefix_len = pack_prefixes([dictionary] * len(payloads) if dictionary else None,
-                                       len(payloads), dev)
-    return decoder(comp, comp_len, prefix, prefix_len, block_maxsize, out_capacity)
-
-
-def _read_decoded(result, block_maxsize):
-    """(decoded rows, None) of a launch of ``_launch_decode``, or (None,
-    (index, error)) of its first failing block."""
-    out, out_len, status = result
-    out_len = out_len.cpu().numpy()
-    bad = check_decoded(status.cpu().numpy(), out_len, block_maxsize)
-    if bad is not None:
-        return None, bad
-    return fetch_rows(out, out_len, np.ones(len(out_len), bool)), None
+    """One launch of ``decoder`` over ``payloads`` on ``dev`` (the payloads
+    and the dictionary in one upload), not waited for: a
+    ``hostpack.Handle`` of the output rows, lengths and statuses."""
+    batch = hostpack.upload_batch(dev, payloads,
+                                  [dictionary] * len(payloads) if dictionary else None)
+    return hostpack.Handle(*decoder(*batch, block_maxsize, out_capacity))
 
 
 def _join_blocks(blocks, outputs) -> bytes:
@@ -609,18 +669,6 @@ def _push_windows(windows, wlen, slots, data, lens):
 #: device bytes that ``_push_windows`` takes a row beside its data: the
 #: int64 byte positions and their two clamped copies, and four window rows
 PUSH_BYTES = 28 * WINDOW_SIZE
-
-
-def _wave_group(decoder, windows, wlen, slots, payloads, limit, dev):
-    """One launch of a wave over the frames ``slots``, their windows slid
-    over the output on the device: (the decoded rows packed on the device,
-    lengths, statuses)."""
-    slots = torch.tensor(slots, device=dev)
-    comp, comp_len = pack_rows(payloads, dev)
-    out, out_len, status = decoder(comp, comp_len, windows[slots], wlen[slots], limit)
-    _push_windows(windows, wlen, slots, out, out_len)
-    lens = out_len.cpu().numpy()
-    return compact_rows(out, lens), lens, status.cpu().numpy()
 
 
 def decompress_frames_parallel(
@@ -680,24 +728,27 @@ def decompress_frames_parallel(
     if not linked:
         return results
 
-    windows, wlen = pack_rows([dictionaries[fi] for fi, *_ in linked], dev, align_right=True)
+    heads = hostpack.Rows([dictionaries[fi] for fi, *_ in linked], align_right=True)
+    (windows, wlen), = hostpack.upload(dev, heads)
     if windows.shape[1] < WINDOW_SIZE:
         windows = torch.nn.functional.pad(windows, (WINDOW_SIZE - windows.shape[1], 0))
-    # per frame, in block order: host bytes of a stored block, or (wave's
-    # packed output, start, length) of a decoded one
+    # per frame, in block order: the payload of a stored block, or (unit,
+    # row) of a decoded one
     pieces = [[] for _ in linked]
+    # the waves' units in order: pushes of stored blocks (nothing stays in
+    # flight) and launches of budget groups; the last group of a wave
+    # raises the wave's size overflow
+    units = []
     for w in range(max(len(blocks) for _, _, blocks, _ in linked)):
         todo, stored = [], []
         for slot, (_, _, blocks, _) in enumerate(linked):
             if w < len(blocks):
                 (todo if blocks[w][0] else stored).append(slot)
-        if stored:
-            payloads = [linked[slot][2][w][1] for slot in stored]
-            for slot, payload in zip(stored, payloads):
-                pieces[slot].append(payload)
-            for a, b in budget_groups(len(stored), WINDOW_SIZE + PUSH_BYTES):
-                data, lens = pack_rows([p[-WINDOW_SIZE:] for p in payloads[a:b]], dev)
-                _push_windows(windows, wlen, torch.tensor(stored[a:b], device=dev), data, lens)
+        payloads = [linked[slot][2][w][1] for slot in stored]
+        for slot, payload in zip(stored, payloads):
+            pieces[slot].append(payload)
+        for a, b in budget_groups(len(stored), WINDOW_SIZE + PUSH_BYTES):
+            units.append((0, 0, ("push", stored[a:b], [p[-WINDOW_SIZE:] for p in payloads[a:b]])))
         if not todo:
             continue
         maxsizes = np.array([linked[slot][1].block_maxsize for slot in todo])
@@ -707,38 +758,44 @@ def decompress_frames_parallel(
         width = round_up(max(map(len, payloads)), 16)
         # a group's rows: output, compressed block, its window, the push's temporaries
         row = round_up(limit + width, 16) + width + WINDOW_SIZE + PUSH_BYTES
-        overflow = False
-        for a, b in budget_groups(len(todo), row):
-            packed, lens, status = _wave_group(decoder, windows, wlen, todo[a:b],
-                                               payloads[a:b], limit, dev)
-            # a decode error anywhere in the wave wins over a size overflow
-            if (status != OK).any():
-                raise DecodeError(STATUS_TO_KIND[int(status[status != OK][0])])
-            overflow |= bool((lens > maxsizes[a:b]).any())
-            ends = np.cumsum(lens)
+        cuts = budget_groups(len(todo), row)
+        for g, (a, b) in enumerate(cuts):
             for k, slot in enumerate(todo[a:b]):
-                pieces[slot].append((packed, int(ends[k] - lens[k]), int(lens[k])))
-        if overflow:
-            raise BlockSizeOverflow("a block decompressed to more data than allowed")
+                pieces[slot].append((len(units), k))
+            units.append((0, (b - a) * row, ("wave", len(units), todo[a:b], payloads[a:b],
+                                             decoder, limit, maxsizes[a:b], g == len(cuts) - 1)))
+    decoded = {}
+    overflow = False
 
-    # one D2H copy of everything decoded, in frame and block order
-    decoded = []
-    for ps in pieces:
-        for p in ps:
-            if not isinstance(p, bytes) and p[2]:
-                packed, start, n = p
-                decoded.append(packed[start : start + n])
-    flat = torch.cat(decoded).cpu().numpy() if decoded else np.zeros(0, np.uint8)
-    pos = 0
+    def dispatch(work):
+        if work[0] == "push":
+            _, slots, tails = work
+            (data, lens), slots = hostpack.upload(dev, hostpack.Rows(tails),
+                                                  np.asarray(slots, np.int64))
+            _push_windows(windows, wlen, slots, data, lens)
+            return None
+        _, _, slots, payloads, decoder, limit, _, _ = work
+        (comp, comp_len), slots = hostpack.upload(dev, hostpack.Rows(payloads),
+                                                  np.asarray(slots, np.int64))
+        out, out_len, status = decoder(comp, comp_len, windows[slots], wlen[slots], limit)
+        _push_windows(windows, wlen, slots, out, out_len)
+        return hostpack.Handle(out, out_len, status)
+
+    def collect(work, handle):
+        nonlocal overflow
+        _, unit, _, _, _, _, maxsizes, last = work
+        lens, status = handle.meta()
+        # a decode error anywhere in the wave wins over a size overflow
+        if (status != OK).any():
+            raise DecodeError(STATUS_TO_KIND[int(status[status != OK][0])])
+        overflow |= bool((lens > maxsizes).any())
+        if last and overflow:
+            raise BlockSizeOverflow("a block decompressed to more data than allowed")
+        decoded[unit] = handle.collect(lens)
+
+    _pipelined(units, dispatch, collect)
     for (fi, reader, _, expected), ps in zip(linked, pieces):
-        parts = []
-        for p in ps:
-            if isinstance(p, bytes):
-                parts.append(p)
-            else:
-                parts.append(flat[pos : pos + p[2]].tobytes())
-                pos += p[2]
-        data = b"".join(parts)
+        data = b"".join(decoded[p[0]][p[1]] if isinstance(p, tuple) else p for p in ps)
         if verify_checksums and reader.flags.content_checksum and expected is not None:
             _check_content(data, expected, dev)
         results[fi] = data

@@ -93,14 +93,14 @@ def test_batched_writer_streams_in_batches(monkeypatch, corpus_sample):
     dic = corpus_sample(4202, 20_000)
     want = _native(block_size=1 << 16, dictionary=dic, block_checksums=True).compress_bytes(data)
     batches = []
-    real = port_compress._scalar_blocks
+    real = port_compress._scalar_dispatch
 
     def spy(src, *args):
         batches.append(src.numel())
         return real(src, *args)
 
     monkeypatch.setattr(port_compress, "BATCH_BYTES", 2 << 16)
-    monkeypatch.setattr(port_compress, "_scalar_blocks", spy)
+    monkeypatch.setattr(port_compress, "_scalar_dispatch", spy)
     s = _settings(lt, block_size=1 << 16, dictionary=dic, block_checksums=True).engine("cpu")
     assert s.compress_bytes(data) == want
     assert batches == [2 << 16] * 2 + [len(data) - (4 << 16)]
@@ -108,7 +108,7 @@ def test_batched_writer_streams_in_batches(monkeypatch, corpus_sample):
 
 def test_linked_frames_keep_the_per_block_loop(monkeypatch, corpus_sample):
     data = corpus_sample(4300, 200_000)
-    monkeypatch.setattr(port_compress, "_scalar_blocks", None)  # never reached
+    monkeypatch.setattr(port_compress, "_scalar_dispatch", None)  # never reached
     got = _settings(lt, block_size=1 << 16, linked=True).engine("cpu").compress_bytes(data)
     assert got == _native(block_size=1 << 16, linked=True).compress_bytes(data)
 
