@@ -46,7 +46,11 @@ into ``_build/`` at first use), which needs no card.
   ``decompress_blocks_128``, ``decompress_blocks_v4``,
   ``decompress_blocks_big``, ``decompress_blocks_v3``;
 * encoder-table state shared with the JAX package: ``tables_from_jax``,
-  ``tables_to_numpy``, ``lane_tables_from_jax``, ``lane_tables_to_jax``.
+  ``tables_to_numpy``, ``lane_tables_from_jax``, ``lane_tables_to_jax``;
+* observability: ``stats()`` and ``reset_stats()``, the counters of the
+  frame paths (calls, launches, bytes through staging); the frame paths'
+  phases appear as ``lz4t.*`` spans in a caller's ``torch.profiler``
+  trace (``runtime.span``).
 """
 
 from .frame.compress import CompressionSettings
@@ -75,6 +79,7 @@ from .parallel.pipeline import (
     decompress_frames_parallel,
 )
 from .parallel.runner import run_sharded_compress, run_sharded_decompress
+from .runtime import reset_stats, stats
 from .spec.block import BlockTooBig, DecodeError, Incompressible
 from .spec.hc import compress_block_hc
 from .spec.xxhash32 import XXHash32, xxh32
@@ -98,6 +103,8 @@ __all__ = [
     "initialize_distributed",
     "run_sharded_compress",
     "run_sharded_decompress",
+    "stats",
+    "reset_stats",
     "compress_blocks",
     "compress_block_cuda",
     "compress_blocks_128",

@@ -28,6 +28,11 @@ packing and transfer path, and of its kernel modules' ``dispatch_*`` /
 On the CPU (``device="cpu"``, the tests) the same functions run with plain
 tensors: no pinning, no streams, no events.  Nothing falls back from the
 card to the CPU.
+
+Each upload and fetch is a span (``lz4t.upload``, ``lz4t.fetch``), and so
+is each wait on the card (``lz4t.wait.launch``, ``lz4t.wait.fetch``,
+``lz4t.wait.staging``) and each new staging buffer (``lz4t.pin``); the
+bytes moved and buffers allocated are counted (``runtime.stats()``).
 """
 
 from __future__ import annotations
@@ -42,6 +47,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from . import runtime
 from .runtime import round_up
 
 #: staging bytes a device's pool keeps for reuse; a buffer given back past
@@ -101,9 +107,14 @@ class _Pool:
                 self.free_bytes -= buf.tensor.numel()
         if buf is None:
             size = max(STAGING_MIN, 1 << max(nbytes - 1, 0).bit_length())
-            buf = _Buffer(torch.empty(size, dtype=torch.uint8, pin_memory=self.pin))
+            with runtime.span("lz4t.pin"):
+                buf = _Buffer(torch.empty(size, dtype=torch.uint8, pin_memory=self.pin))
+            runtime.count(staging_allocs=1, staging_alloc_bytes=size)
         if buf.event is not None:
-            buf.event.synchronize()  # the copy that last used it has completed
+            if not buf.event.query():  # the copy that last used it is still running
+                runtime.count(staging_waits=1)
+                with runtime.span("lz4t.wait.staging"):
+                    buf.event.synchronize()
             buf.event = None
         span = (ctypes.c_uint8 * nbytes).from_address(buf.tensor.data_ptr())
         weakref.finalize(span, self.back.append, buf)
@@ -294,6 +305,7 @@ def _scatter_rows(data, lens, part: Rows):
     return rows
 
 
+@runtime.traced("lz4t.upload")
 def upload(dev, *parts):
     """Host ``parts`` to ``dev`` in one staging span and one copy, not
     waited for: a ``Rows`` part gives ``(rows, lens)``, any other part (a
@@ -311,6 +323,7 @@ def upload(dev, *parts):
             plan.append((arr, total, None))
             total = round_up(total + arr.nbytes, ALIGN)
     span, buf = d.pool.take(total)
+    runtime.count(uploads=1, upload_bytes=total)
     host = np.frombuffer(span, np.uint8)
     for part, at, lens_at in plan:
         if lens_at is None:
@@ -378,7 +391,8 @@ class Fetched:
 
     def wait(self) -> "Fetched":
         if self.event is not None:
-            self.event.synchronize()
+            with runtime.span("lz4t.wait.fetch"):
+                self.event.synchronize()
             self.event = None
         return self
 
@@ -395,6 +409,7 @@ class Fetched:
         return (self[i] for i in range(len(self.lens)))
 
 
+@runtime.traced("lz4t.fetch")
 def fetch(out, lens, keep=None, after=None) -> Fetched:
     """Rows ``out[i, :lens[i]]`` of a contiguous ``(N, W)`` uint8 tensor, W
     a multiple of 16 (``lens`` on the host; rows with ``keep`` false are
@@ -413,6 +428,7 @@ def fetch(out, lens, keep=None, after=None) -> Fetched:
     offsets = (np.cumsum(units) - units) * UNIT
     units_at = UNIT * int(units.sum())
     span, buf = d.pool.take(units_at + 4 * n)
+    runtime.count(fetches=1, fetch_bytes=units_at)
     np.frombuffer(span, np.int32, n, units_at)[:] = units
     with d.on_copy_stream():
         if d.cuda:
@@ -456,7 +472,8 @@ class Handle:
     def meta(self):
         """The meta tensors as host arrays, once their copy has completed."""
         if self.ready is not None:
-            self.ready.synchronize()
+            with runtime.span("lz4t.wait.launch"):
+                self.ready.synchronize()
         return self._meta
 
     def collect(self, lens, keep=None) -> Fetched:

@@ -63,6 +63,12 @@ of one output block are spliced into ONE block of the declared size
 parses.  Such a frame is valid LZ4 of about the same size, not the
 streaming writer's bytes.
 
+Each entry point runs in a span of its own (``lz4t.compress_frame``,
+``lz4t.decompress_frame``, ``lz4t.decompress_frames``) that holds one span
+a phase: ``lz4t.scan``, ``lz4t.join``, ``lz4t.assemble`` and
+``lz4t.checksum`` here, ``lz4t.launch`` around each launch's host side,
+and ``hostpack``'s transfers and waits (``runtime.span``).
+
 The streaming API takes the same one-launch paths for independent frames:
 ``CompressionSettings`` writes its batches through ``_scalar_blocks``, and
 ``LZ4FrameReader.read_all`` decodes through ``_scan_frame`` and
@@ -78,7 +84,13 @@ import torch
 
 from .. import hostpack
 
-from ..frame.errors import BlockChecksumFail, BlockSizeOverflow, FrameChecksumFail, InvalidBlockSize
+from ..frame.errors import (
+    BlockChecksumFail,
+    BlockSizeOverflow,
+    FrameChecksumFail,
+    InputTruncated,
+    InvalidBlockSize,
+)
 from ..frame.header import INCOMPRESSIBLE, MAGIC, BlockDescriptor, Flags
 from ..kernels.compress import compress_batch
 from ..kernels.compress128 import MAX_B, compress128
@@ -89,7 +101,7 @@ from ..kernels import pack
 from ..kernels.pack import budget_groups, check_decoded
 from ..kernels.splice import splice_streams
 from ..kernels.status import OK, STATUS_INCOMPRESSIBLE, STATUS_TO_KIND
-from ..runtime import host_u8, resolve_device, round_up
+from ..runtime import entry, host_u8, resolve_device, round_up, span
 from ..spec.block import WINDOW_SIZE, DecodeError
 from ..spec.table import U32_SLOTS, U32Table, prime_u32_table
 from ..spec.xxhash32 import xxh32
@@ -220,29 +232,30 @@ def _scalar_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, a
     if d and not parallel_linked:
         parts.append(template.dict.view(np.int32))
     content, params, *rest = hostpack.upload(dev, *parts)
-    if parallel_linked:
-        padded = torch.zeros(w + n_blocks * block_size, dtype=torch.uint8, device=dev)
-        padded[w - halo : w + b - a].copy_(content)
-        if head:
-            padded[:w].copy_(rest[0])
-        rows = _linked_rows(padded, n_blocks, block_size, full_first)
-    else:
-        # the range padded to whole blocks on the device
-        flat = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
-        flat[: b - a].copy_(content)
-        rows = flat.view(n_blocks, block_size)
-        if d:
-            buf = torch.empty((n_blocks, d + block_size), dtype=torch.uint8, device=dev)
-            buf[:, :d] = rest[0]
-            buf[:, d:] = rows
-            rows = buf
-    if d and not parallel_linked:
-        tables = rest[1].expand(n_blocks, U32_SLOTS).contiguous()
-    else:
-        tables = torch.zeros((n_blocks, U32_SLOTS), dtype=torch.int32, device=dev)
-    out, out_len, status, _ = compress_batch(
-        rows, *params, tables, round_up(block_size + 16, 16))
-    return hostpack.Handle(out, out_len, status)
+    with span("lz4t.launch"):
+        if parallel_linked:
+            padded = torch.zeros(w + n_blocks * block_size, dtype=torch.uint8, device=dev)
+            padded[w - halo : w + b - a].copy_(content)
+            if head:
+                padded[:w].copy_(rest[0])
+            rows = _linked_rows(padded, n_blocks, block_size, full_first)
+        else:
+            # the range padded to whole blocks on the device
+            flat = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
+            flat[: b - a].copy_(content)
+            rows = flat.view(n_blocks, block_size)
+            if d:
+                buf = torch.empty((n_blocks, d + block_size), dtype=torch.uint8, device=dev)
+                buf[:, :d] = rest[0]
+                buf[:, d:] = rows
+                rows = buf
+        if d and not parallel_linked:
+            tables = rest[1].expand(n_blocks, U32_SLOTS).contiguous()
+        else:
+            tables = torch.zeros((n_blocks, U32_SLOTS), dtype=torch.int32, device=dev)
+        out, out_len, status, _ = compress_batch(
+            rows, *params, tables, round_up(block_size + 16, 16))
+        return hostpack.Handle(out, out_len, status)
 
 
 def _scalar_collect(handle, lens):
@@ -324,20 +337,21 @@ def _lane_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, chu
              cur0 + chunk_len.astype(np.int32), cur0]
     data, base, ends, cur0, *rest = hostpack.upload(
         dev, *parts, *([tail] if d and not linked_range else []))
-    if linked_range:
-        flat = data
-    elif parallel_linked:
-        flat = torch.cat([rest[0], data]) if d else data
-    elif d:
-        buf = torch.zeros((n_blocks, segment), dtype=torch.uint8, device=dev)
-        buf[:, :d] = rest[0]
-        padded = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
-        padded[:n] = data
-        buf[:, d:] = padded.view(n_blocks, block_size)
-        flat = buf.view(-1)
-    else:
-        flat = data
-    return hostpack.Handle(*compress128(flat, base, ends, cur0))
+    with span("lz4t.launch"):
+        if linked_range:
+            flat = data
+        elif parallel_linked:
+            flat = torch.cat([rest[0], data]) if d else data
+        elif d:
+            buf = torch.zeros((n_blocks, segment), dtype=torch.uint8, device=dev)
+            buf[:, :d] = rest[0]
+            padded = torch.zeros(n_blocks * block_size, dtype=torch.uint8, device=dev)
+            padded[:n] = data
+            buf[:, d:] = padded.view(n_blocks, block_size)
+            flat = buf.view(-1)
+        else:
+            flat = data
+        return hostpack.Handle(*compress128(flat, base, ends, cur0))
 
 
 def _lane_blocks(src, block_size, dictionary, parallel_linked, chunk_windows, devs):
@@ -383,6 +397,7 @@ def _devices(device, mesh) -> tuple:
     return mesh.devices
 
 
+@entry("compress_frame")
 def compress_frame_parallel(
     data,
     block_size: int = 1 << 16,
@@ -446,39 +461,40 @@ def compress_frame_parallel(
         payloads, lens = _scalar_blocks(src, block_size, dictionary, parallel_linked,
                                         acceleration, devs)
 
-    # host-side ordered assembly (frame order)
-    flags = Flags(
-        independent_blocks=not parallel_linked,
-        block_checksums=block_checksums,
-        content_checksum=content_checksum,
-        content_size=with_content_size,
-        dictionary_id=dictionary_id is not None,
-    )
+    # host-side ordered assembly (frame order): (stored raw, payload) of
+    # each block but the zero-length ones (0 is the EndMark)
     mv = memoryview(src.numpy())
-    parts = [_frame_header(flags, bd, n if with_content_size else None, dictionary_id)]
-    for i, payload in enumerate(payloads):
-        if not lens[i]:
-            continue  # no zero-length blocks: 0 is the EndMark
-        if payload is None:
-            payload = mv[i * block_size : i * block_size + int(lens[i])]
-            parts.append((int(lens[i]) | INCOMPRESSIBLE).to_bytes(4, "little"))
-        else:
-            parts.append(len(payload).to_bytes(4, "little"))
-        parts.append(payload)
-        if block_checksums:
-            parts.append(payload_xxh32(payload, device=dev).to_bytes(4, "little"))
-    parts.append((0).to_bytes(4, "little"))
-    if content_checksum:
-        parts.append(make_hasher(0, dev).update(mv).digest().to_bytes(4, "little"))
-    return b"".join(parts)
+    with span("lz4t.assemble"):
+        blocks = [(p is None, mv[i * block_size : i * block_size + k] if p is None else p)
+                  for i, (p, k) in enumerate(zip(payloads, lens.tolist())) if k]
+    with span("lz4t.checksum"):
+        sums = [payload_xxh32(p, device=dev) for _, p in blocks] if block_checksums else None
+        content_sum = make_hasher(0, dev).update(mv).digest() if content_checksum else None
+    with span("lz4t.assemble"):
+        flags = Flags(
+            independent_blocks=not parallel_linked,
+            block_checksums=block_checksums,
+            content_checksum=content_checksum,
+            content_size=with_content_size,
+            dictionary_id=dictionary_id is not None,
+        )
+        parts = [_frame_header(flags, bd, n if with_content_size else None, dictionary_id)]
+        for i, (raw, payload) in enumerate(blocks):
+            parts.append((len(payload) | (INCOMPRESSIBLE if raw else 0)).to_bytes(4, "little"))
+            parts.append(payload)
+            if sums is not None:
+                parts.append(sums[i].to_bytes(4, "little"))
+        parts.append((0).to_bytes(4, "little"))
+        if content_sum is not None:
+            parts.append(content_sum.to_bytes(4, "little"))
+        return b"".join(parts)
 
 
-def _scan_frame(reader, check=None, blocks=None):
+def _scan_frame(reader, blocks=None):
     """The frame's block chain without decoding: [(compressed, payload,
     checksum)] and the trailer checksum, with the streaming reader's
-    hostile-input checks.  ``check(payload, checksum)``, if given, is called
-    for each block as it is read.  The blocks are appended to ``blocks``
-    when given, so that the caller keeps those read before an error."""
+    hostile-input checks.  The blocks are appended to ``blocks`` when
+    given, so that the caller keeps those read before an error."""
     from ..frame.decompress import _read_exact
 
     blocks = [] if blocks is None else blocks
@@ -502,8 +518,6 @@ def _scan_frame(reader, check=None, blocks=None):
             if reader.flags.block_checksums
             else None
         )
-        if check is not None and checksum is not None:
-            check(payload, checksum)
         blocks.append((compressed, payload, checksum))
 
 
@@ -520,6 +534,7 @@ def _check_content(data, expected_sum, dev):
         raise FrameChecksumFail("the frame checksum was invalid")
 
 
+@entry("decompress_frame")
 def decompress_frame_parallel(
     frame,
     device=None,
@@ -552,15 +567,18 @@ def decompress_frame_parallel(
     dev = devs[0]
     frame = bytes(frame)
     dictionary = bytes(dictionary or b"")[-WINDOW_SIZE:]
-    reader = LZ4FrameReader(frame, engine=dev)
-    if not reader.flags.independent_blocks:
+    with span("lz4t.scan"):
+        reader = LZ4FrameReader(frame, engine=dev)
+        scanned = _scan_frame(reader) if reader.flags.independent_blocks else None
+    if scanned is None:
         return LZ4FrameReader(frame, engine=dev).read_all(dictionary)
 
-    blocks, expected_sum = _scan_frame(reader)
+    blocks, expected_sum = scanned
     if verify_checksums and reader.flags.block_checksums:
-        check = _block_checksum_check(dev)
-        for _, payload, checksum in blocks:
-            check(payload, checksum)
+        with span("lz4t.checksum"):
+            check = _block_checksum_check(dev)
+            for _, payload, checksum in blocks:
+                check(payload, checksum)
     return _decode_independent(reader, blocks, expected_sum, dictionary, devs,
                                verify_checksums, lane_kernel)
 
@@ -627,7 +645,8 @@ def _launch_decode(decoder, payloads, block_maxsize, dictionary, out_capacity, d
     ``hostpack.Handle`` of the output rows, lengths and statuses."""
     batch = hostpack.upload_batch(dev, payloads,
                                   [dictionary] * len(payloads) if dictionary else None)
-    return hostpack.Handle(*decoder(*batch, block_maxsize, out_capacity))
+    with span("lz4t.launch"):
+        return hostpack.Handle(*decoder(*batch, block_maxsize, out_capacity))
 
 
 def _join_blocks(blocks, outputs) -> bytes:
@@ -643,9 +662,11 @@ def _decode_independent(reader, blocks, expected_sum, dictionary, devs, verify_c
     group of blocks on each device of ``devs`` (``_decode_payloads``)."""
     outputs = _decode_payloads([p for c, p, _ in blocks if c], reader.block_maxsize,
                                dictionary, devs, lane_kernel)
-    result = _join_blocks(blocks, outputs)
+    with span("lz4t.join"):
+        result = _join_blocks(blocks, outputs)
     if verify_checksums and reader.flags.content_checksum and expected_sum is not None:
-        _check_content(result, expected_sum, devs[0])
+        with span("lz4t.checksum"):
+            _check_content(result, expected_sum, devs[0])
     return result
 
 
@@ -671,6 +692,7 @@ def _push_windows(windows, wlen, slots, data, lens):
 PUSH_BYTES = 28 * WINDOW_SIZE
 
 
+@entry("decompress_frames")
 def decompress_frames_parallel(
     frames,
     device=None,
@@ -718,8 +740,22 @@ def decompress_frames_parallel(
     results = [None] * len(frames)
     linked = []  # (frame index, reader, blocks, expected checksum)
     for fi, frame in enumerate(frames):
-        reader = LZ4FrameReader(frame, engine=dev)
-        blocks, expected = _scan_frame(reader, check)
+        # the block checksums are checked after the scan, and a bad one
+        # before the block at which the scan stopped is raised first, as a
+        # check of each block as it is read would
+        blocks, stop = [], None
+        with span("lz4t.scan"):
+            reader = LZ4FrameReader(frame, engine=dev)
+            try:
+                _, expected = _scan_frame(reader, blocks)
+            except (BlockSizeOverflow, InputTruncated) as e:
+                stop = e
+        if check is not None and reader.flags.block_checksums:
+            with span("lz4t.checksum"):
+                for _, payload, checksum in blocks:
+                    check(payload, checksum)
+        if stop is not None:
+            raise stop
         if reader.flags.independent_blocks:
             results[fi] = _decode_independent(reader, blocks, expected, dictionaries[fi], devs,
                                               verify_checksums)
@@ -772,14 +808,16 @@ def decompress_frames_parallel(
             _, slots, tails = work
             (data, lens), slots = hostpack.upload(dev, hostpack.Rows(tails),
                                                   np.asarray(slots, np.int64))
-            _push_windows(windows, wlen, slots, data, lens)
+            with span("lz4t.launch"):
+                _push_windows(windows, wlen, slots, data, lens)
             return None
         _, _, slots, payloads, decoder, limit, _, _ = work
         (comp, comp_len), slots = hostpack.upload(dev, hostpack.Rows(payloads),
                                                   np.asarray(slots, np.int64))
-        out, out_len, status = decoder(comp, comp_len, windows[slots], wlen[slots], limit)
-        _push_windows(windows, wlen, slots, out, out_len)
-        return hostpack.Handle(out, out_len, status)
+        with span("lz4t.launch"):
+            out, out_len, status = decoder(comp, comp_len, windows[slots], wlen[slots], limit)
+            _push_windows(windows, wlen, slots, out, out_len)
+            return hostpack.Handle(out, out_len, status)
 
     def collect(work, handle):
         nonlocal overflow
@@ -794,9 +832,12 @@ def decompress_frames_parallel(
         decoded[unit] = handle.collect(lens)
 
     _pipelined(units, dispatch, collect)
-    for (fi, reader, _, expected), ps in zip(linked, pieces):
-        data = b"".join(decoded[p[0]][p[1]] if isinstance(p, tuple) else p for p in ps)
-        if verify_checksums and reader.flags.content_checksum and expected is not None:
-            _check_content(data, expected, dev)
-        results[fi] = data
+    with span("lz4t.join"):
+        for (fi, *_), ps in zip(linked, pieces):
+            results[fi] = b"".join(decoded[p[0]][p[1]] if isinstance(p, tuple) else p for p in ps)
+    if verify_checksums:
+        with span("lz4t.checksum"):
+            for fi, reader, _, expected in linked:
+                if reader.flags.content_checksum and expected is not None:
+                    _check_content(results[fi], expected, dev)
     return results

@@ -1,16 +1,27 @@
-"""Device selection and per-kernel launch accounting.
+"""Device selection and the port's instrumentation: per-kernel launch
+accounting, spans and counters.
 
 Every public entry point of the port takes ``device=None``, which means
 ``"cuda"``: without a card that is an error, never a quiet fall back to
 the CPU.  Pass ``device="cpu"`` to run the kernels' plain versions.
+
+Spans (``span``) name the phases of the frame paths in a caller's
+``torch.profiler`` trace, on the profiler's clock beside the card's
+kernels and copies; with no profiler recording a span is one check.
+Counters (``stats()``, ``reset_stats()``) are integer adds at the same
+boundaries, always on.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import threading
 import warnings
 
 import numpy as np
 import torch
+from torch.autograd.profiler import record_function
 
 
 def resolve_device(device=None) -> torch.device:
@@ -37,6 +48,7 @@ class KernelStats:
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
+        self.total = 0  # launches since ``reset_stats()``; ``reset`` leaves it
         self._events = None
 
     def reset(self, timing: bool = False) -> None:
@@ -45,6 +57,7 @@ class KernelStats:
 
     def begin(self):
         self.launches += 1
+        self.total += 1
         if self._events is None:
             return None
         start = torch.cuda.Event(enable_timing=True)
@@ -62,6 +75,105 @@ class KernelStats:
             return 0.0
         torch.cuda.synchronize()
         return sum(a.elapsed_time(b) for a, b in self._events)
+
+
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A context that records ``name`` as a span of the current thread
+    (``record_function``) while torch's profiler records, and does nothing
+    otherwise: the check costs under 1 us, an unrecorded
+    ``record_function`` about 10 us.  Spans are opened per phase of a
+    call, never per block."""
+    return record_function(name) if _recording() else _OFF
+
+
+#: the frame entry points whose calls ``stats()`` counts
+ENTRIES = ("compress_frame", "decompress_frame", "decompress_frames")
+#: the counters of ``stats()`` besides ``calls`` and ``launches``
+COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes", "staging_allocs",
+            "staging_alloc_bytes", "staging_waits")
+_LOCK = threading.Lock()
+_CALLS = dict.fromkeys(ENTRIES, 0)
+_COUNTS = dict.fromkeys(COUNTERS, 0)
+
+
+def count(**adds: int) -> None:
+    """Add to the counters named."""
+    with _LOCK:
+        for name, n in adds.items():
+            _COUNTS[name] += n
+
+
+def traced(name: str):
+    """Decorator: each call of the function runs in the span ``name``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def entry(name: str):
+    """Decorator of a frame entry point: each call counts under ``name`` in
+    ``stats()["calls"]`` and runs in the span ``lz4t.<name>``."""
+
+    label = f"lz4t.{name}"
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with _LOCK:
+                _CALLS[name] += 1
+            with span(label):
+                return fn(*args, **kwargs)
+
+        return call
+
+    return wrap
+
+
+def _kernels() -> list[KernelStats]:
+    from .kernels import (compress, compress128, decode128, decodebig, decompress_v3,
+                          decompress_v4)
+
+    return [m.KERNEL for m in (compress, compress128, decode128, decodebig, decompress_v4,
+                               decompress_v3)]
+
+
+def stats() -> dict:
+    """A snapshot of the counters since the process started or
+    ``reset_stats()``: ``calls`` by entry point, ``launches`` by kernel
+    (the CUDA kernels'; plain versions launch nothing), and ``COUNTERS``;
+    besides, ``device_bytes_peak``, torch's peak of allocated device
+    memory on the busiest card since the process started (0 without one),
+    which ``reset_stats()`` leaves alone."""
+    with _LOCK:
+        out = {"calls": dict(_CALLS), **_COUNTS}
+    out["launches"] = {k.name: k.total for k in _kernels()}
+    out["device_bytes_peak"] = max(
+        (torch.cuda.max_memory_allocated(i) for i in range(torch.cuda.device_count())),
+        default=0) if torch.cuda.is_initialized() else 0
+    return out
+
+
+def reset_stats() -> None:
+    """Zero every counter of ``stats()``.  Leaves ``KernelStats.launches``
+    and its timing, and torch's own memory statistics (``device_bytes_peak``),
+    as they are."""
+    with _LOCK:
+        for d in (_CALLS, _COUNTS):
+            for k in d:
+                d[k] = 0
+    for k in _kernels():
+        k.total = 0
 
 
 def stream_handle() -> int:
