@@ -13,7 +13,8 @@ C++ compiler at first use, see ``build.py``):
 * ``decompress_block(data, prefix, out, output_limit)`` and
   ``decompress_block_into``: raise ``spec.block.DecodeError`` with the
   reference decoder's kinds;
-* ``xxh32(data, seed)``, the streaming ``XXHash32`` and ``compress_bound``.
+* ``xxh32(data, seed)``, the streaming ``XXHash32`` (``update_table`` feeds
+  the ``buffer_table`` of many buffers in one call) and ``compress_bound``.
 
 Every call releases the interpreter lock for its native work (ctypes does),
 so the frame layer runs independent blocks on a thread pool.  This is the
@@ -42,6 +43,8 @@ _SIGNATURES = {
     "lz4t_xxh32_state_size": (ctypes.c_int, []),
     "lz4t_xxh32_init": (None, [_P, _U32]),
     "lz4t_xxh32_update": (None, [_P, _P, _U64]),
+    # state, pointers, lengths, count
+    "lz4t_xxh32_update_many": (None, [_P, _P, _P, _U64]),
     "lz4t_xxh32_digest": (_U32, [_P, _U32]),
     # in, n, cursor, table slots, table offset, cap (-1: none), acceleration,
     # out, out capacity
@@ -96,6 +99,29 @@ def xxh32(data, seed: int = 0) -> int:
     return int(load().lz4t_xxh32(ptr, n, seed))
 
 
+def _address(piece) -> int:
+    """The address of the first byte of a C-contiguous bytes-like object."""
+    if type(piece) is bytes:
+        return ctypes.cast(piece, _P).value
+    try:
+        return ctypes.addressof(ctypes.c_char.from_buffer(piece))  # a writable buffer
+    except TypeError:  # a read-only one
+        return np.frombuffer(piece, np.uint8).ctypes.data
+
+
+def buffer_table(pieces):
+    """(addresses, lengths), uint64 arrays, of the non-empty bytes-like
+    ``pieces`` in order, for ``XXHash32.update_table``.  The pieces must
+    stay alive, and unchanged, while the table is used."""
+    addresses, lengths = [], []
+    for p in pieces:
+        n = len(p) if type(p) is bytes else memoryview(p).nbytes
+        if n:
+            addresses.append(_address(p))
+            lengths.append(n)
+    return np.array(addresses, np.uint64), np.array(lengths, np.uint64)
+
+
 class XXHash32:
     """Streaming xxHash32 over the native state machine."""
 
@@ -108,6 +134,13 @@ class XXHash32:
     def update(self, data) -> "XXHash32":
         ptr, n, _keep = _pointer(data)
         load().lz4t_xxh32_update(self._state, ptr, n)
+        return self
+
+    def update_table(self, addresses, lengths) -> "XXHash32":
+        """``update`` with each buffer of a ``buffer_table`` in order, in one
+        native call (the interpreter lock is released for all of them)."""
+        load().lz4t_xxh32_update_many(self._state, addresses.ctypes.data, lengths.ctypes.data,
+                                      len(addresses))
         return self
 
     def digest(self) -> int:

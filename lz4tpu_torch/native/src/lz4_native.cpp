@@ -4,7 +4,8 @@
 // that its frame layer and block API use, with the same semantics as the
 // reference (greedy parse: src/raw/compress/mod.rs:147-260, decoder:
 // src/raw/decompress.rs:28-138):
-//  * xxHash32, one-shot and streaming, state in a caller-owned buffer;
+//  * xxHash32, one-shot and streaming (one buffer or many a call), state in a
+//    caller-owned buffer;
 //  * the greedy compressor on U32 and U16 encoder tables, the table
 //    mutated in the caller's numpy array (also up to an abort at the cap);
 //  * the high-compression parse (hash chains and lazy matching) of
@@ -103,6 +104,15 @@ extern "C" void lz4t_xxh32_update(XXH32State* s, const u8* data, u64 len) {
     if (len) {
         std::memcpy(s->buf, data, len);
         s->buflen = (u32)len;
+    }
+}
+
+// n buffers fed in order through s, as n calls of lz4t_xxh32_update: a
+// frame's content in one call from the host's pieces of it
+extern "C" void lz4t_xxh32_update_many(XXH32State* s, const u8* const* ptrs, const u64* lens,
+                                       u64 n) {
+    for (u64 i = 0; i < n; i++) {
+        if (lens[i]) lz4t_xxh32_update(s, ptrs[i], lens[i]);
     }
 }
 

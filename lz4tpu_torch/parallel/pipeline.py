@@ -63,11 +63,20 @@ of one output block are spliced into ONE block of the declared size
 parses.  Such a frame is valid LZ4 of about the same size, not the
 streaming writer's bytes.
 
+A frame's content checksum depends only on its content, so it is hashed
+beside the rest of the call (``utils.hashing.content_hash``: on a helper
+thread for content on the native backend from ``BESIDE_MIN`` bytes): a
+write's from the input, before its blocks are uploaded; a read's from the
+decoded rows and stored payloads, while they are joined.  The call waits
+for the digest before it returns, and a read raises ``FrameChecksumFail``
+before any content is returned.
+
 Each entry point runs in a span of its own (``lz4t.compress_frame``,
 ``lz4t.decompress_frame``, ``lz4t.decompress_frames``) that holds one span
 a phase: ``lz4t.scan``, ``lz4t.join``, ``lz4t.assemble`` and
-``lz4t.checksum`` here, ``lz4t.launch`` around each launch's host side,
-and ``hostpack``'s transfers and waits (``runtime.span``).
+``lz4t.checksum`` (block checksums, and the wait for a content hash that
+is not ready) here, ``lz4t.launch`` around each launch's host side, and
+``hostpack``'s transfers and waits (``runtime.span``).
 
 The streaming API takes the same one-launch paths for independent frames:
 ``CompressionSettings`` writes its batches through ``_scalar_blocks``, and
@@ -105,7 +114,7 @@ from ..runtime import entry, host_u8, resolve_device, round_up, span
 from ..spec.block import WINDOW_SIZE, DecodeError
 from ..spec.table import U32_SLOTS, U32Table, prime_u32_table
 from ..spec.xxhash32 import xxh32
-from ..utils.hashing import make_hasher
+from ..utils.hashing import content_hash
 from ..utils.hashing import xxh32 as payload_xxh32
 from .mesh import shard_bounds
 
@@ -453,6 +462,9 @@ def compress_frame_parallel(
     dev = devs[0]  # checksums are host work; its kind picks their backend
     src = host_u8(data)
     n = src.numel()
+    mv = memoryview(src.numpy())
+    # the content hash needs only the input: it runs beside the blocks' work
+    content_sum = content_hash([mv], dev) if content_checksum else None
     dictionary = bytes(dictionary) if dictionary is not None else None
     if lane_kernel:
         payloads, lens = _lane_blocks(src, block_size, dictionary, parallel_linked,
@@ -463,13 +475,12 @@ def compress_frame_parallel(
 
     # host-side ordered assembly (frame order): (stored raw, payload) of
     # each block but the zero-length ones (0 is the EndMark)
-    mv = memoryview(src.numpy())
     with span("lz4t.assemble"):
         blocks = [(p is None, mv[i * block_size : i * block_size + k] if p is None else p)
                   for i, (p, k) in enumerate(zip(payloads, lens.tolist())) if k]
     with span("lz4t.checksum"):
         sums = [payload_xxh32(p, device=dev) for _, p in blocks] if block_checksums else None
-        content_sum = make_hasher(0, dev).update(mv).digest() if content_checksum else None
+        content_sum = content_sum.digest() if content_sum is not None else None
     with span("lz4t.assemble"):
         flags = Flags(
             independent_blocks=not parallel_linked,
@@ -529,8 +540,10 @@ def _block_checksum_check(dev):
     return check
 
 
-def _check_content(data, expected_sum, dev):
-    if make_hasher(0, dev).update(data).digest() != expected_sum:
+def _check_content(digest, expected_sum):
+    """Raise ``FrameChecksumFail`` unless the content hash ``digest`` (a
+    ``utils.hashing.content_hash``) comes out as ``expected_sum``."""
+    if digest.digest() != expected_sum:
         raise FrameChecksumFail("the frame checksum was invalid")
 
 
@@ -649,11 +662,16 @@ def _launch_decode(decoder, payloads, block_maxsize, dictionary, out_capacity, d
         return hostpack.Handle(*decoder(*batch, block_maxsize, out_capacity))
 
 
-def _join_blocks(blocks, outputs) -> bytes:
-    """The frame's content: decoded ``outputs`` in the places of the
-    compressed ``blocks``, stored payloads as they are."""
+def _content_pieces(blocks, outputs) -> list:
+    """The pieces of the frame's content in order: decoded ``outputs`` in
+    the places of the compressed ``blocks``, stored payloads as they are."""
     outputs = iter(outputs)
-    return b"".join(next(outputs) if compressed else payload for compressed, payload, _ in blocks)
+    return [next(outputs) if compressed else payload for compressed, payload, _ in blocks]
+
+
+def _join_blocks(blocks, outputs) -> bytes:
+    """The frame's content, joined from ``_content_pieces``."""
+    return b"".join(_content_pieces(blocks, outputs))
 
 
 def _decode_independent(reader, blocks, expected_sum, dictionary, devs, verify_checksums,
@@ -662,11 +680,16 @@ def _decode_independent(reader, blocks, expected_sum, dictionary, devs, verify_c
     group of blocks on each device of ``devs`` (``_decode_payloads``)."""
     outputs = _decode_payloads([p for c, p, _ in blocks if c], reader.block_maxsize,
                                dictionary, devs, lane_kernel)
+    pieces = _content_pieces(blocks, outputs)
+    # the content is hashed from its pieces beside the join
+    digest = (content_hash(pieces, devs[0])
+              if verify_checksums and reader.flags.content_checksum and expected_sum is not None
+              else None)
     with span("lz4t.join"):
-        result = _join_blocks(blocks, outputs)
-    if verify_checksums and reader.flags.content_checksum and expected_sum is not None:
+        result = b"".join(pieces)
+    if digest is not None:
         with span("lz4t.checksum"):
-            _check_content(result, expected_sum, devs[0])
+            _check_content(digest, expected_sum)
     return result
 
 
@@ -832,12 +855,16 @@ def decompress_frames_parallel(
         decoded[unit] = handle.collect(lens)
 
     _pipelined(units, dispatch, collect)
+    # each frame's content is hashed from its pieces beside the joins
+    digests = []
     with span("lz4t.join"):
-        for (fi, *_), ps in zip(linked, pieces):
-            results[fi] = b"".join(decoded[p[0]][p[1]] if isinstance(p, tuple) else p for p in ps)
-    if verify_checksums:
+        for (fi, reader, _, expected), ps in zip(linked, pieces):
+            ps = [decoded[p[0]][p[1]] if isinstance(p, tuple) else p for p in ps]
+            if verify_checksums and reader.flags.content_checksum and expected is not None:
+                digests.append((content_hash(ps, dev), expected))
+            results[fi] = b"".join(ps)
+    if digests:
         with span("lz4t.checksum"):
-            for fi, reader, _, expected in linked:
-                if reader.flags.content_checksum and expected is not None:
-                    _check_content(results[fi], expected, dev)
+            for digest, expected in digests:
+                _check_content(digest, expected)
     return results

@@ -94,7 +94,8 @@ def span(name: str):
 ENTRIES = ("compress_frame", "decompress_frame", "decompress_frames")
 #: the counters of ``stats()`` besides ``calls`` and ``launches``
 COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes", "staging_allocs",
-            "staging_alloc_bytes", "staging_waits")
+            "staging_alloc_bytes", "staging_waits", "content_hashes_beside",
+            "content_hash_waits")
 _LOCK = threading.Lock()
 _CALLS = dict.fromkeys(ENTRIES, 0)
 _COUNTS = dict.fromkeys(COUNTERS, 0)
