@@ -35,8 +35,9 @@ Phases, in order; any mismatch or exception exits non-zero:
    blocks of 256 KiB, 1 MiB and 4 MiB without a prefix, with a 64 KiB
    prefix and with a prefix too short for their offsets, and streams with
    length runs and long sequences all along; the largest block alone timed
-   in turns on decode_big and decompress_v4).  Bytes, lengths, statuses
-   and tables must be equal: a byte codec has no tolerance;
+   in turns on decode_big and decompress_v4), and the slide of linked
+   frames' windows between waves (``kernels/window.py``).  Bytes, lengths,
+   statuses and tables must be equal: a byte codec has no tolerance;
 3. the 64 KiB independent-block path at full size: each Silesia stand-in
    member (scale 1.0: 211,938,580 bytes) through ``compress_frame_parallel(block_size=65536,
    content_checksum=True)`` and ``decompress_frame_parallel`` on the card,
@@ -1012,6 +1013,41 @@ def check_decoders(members):
           + ", ".join(f"{k} {ms:.3f} ms" for k, ms in at_one.items())
           + f", bound {moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return report
+
+
+def check_push_windows():
+    """The slide of linked frames' windows (``kernels/window.py``) against
+    its plain version: 64 rows of a wave, each with a window of its own
+    length, new bytes of 0 to 65,552 bytes from decoded rows and from
+    stored ones, rows that go to a permuted row of the next wave or
+    nowhere; the launch timed at a wave of the ``silesia-64k-readbatch``
+    cell's size (64 rows)."""
+    import torch
+
+    from lz4tpu_torch.kernels import window
+
+    gen = torch.Generator().manual_seed(0x51DE)
+    n, m, w = 64, 50, 1 << 16
+    old = torch.randint(0, 256, (n, w), dtype=torch.uint8, generator=gen)
+    old_len = torch.randint(0, w + 1, (n,), dtype=torch.int32, generator=gen)
+    for width in (w + 16, 4096):  # a decoded wave's output rows, a stored wave's blocks
+        data = torch.randint(0, 256, (n, width), dtype=torch.uint8, generator=gen)
+        lens = torch.randint(0, width + 1, (n,), dtype=torch.int32, generator=gen)
+        lens[:4] = torch.tensor([0, 1, w, width])[: 4].clamp(max=width).to(torch.int32)
+        dest = torch.full((n,), -1, dtype=torch.int32)
+        dest[torch.randperm(n, generator=gen)[:m]] = torch.randperm(m, generator=gen).to(
+            torch.int32)
+        want = (torch.zeros(m, w, dtype=torch.uint8), torch.zeros(m, dtype=torch.int32))
+        window.push_windows_plain(old, old_len, data, lens, dest, *want)
+        cuda = [t.cuda() for t in (old, old_len, data, lens, dest)]
+        got = (torch.zeros(m, w, dtype=torch.uint8, device="cuda"),
+               torch.zeros(m, dtype=torch.int32, device="cuda"))
+        window.push_windows(*cuda, *got)
+        torch.cuda.synchronize()
+        same(f"push_windows (rows of {width} B)", got, want, ("new", "new_len"))
+    ms = cuda_ms(lambda: window.push_windows(*cuda, *got))
+    bound = 2 * m * w / HBM_BYTES_PER_S * 1e3
+    print(f"  push_windows: {ms:.4f} ms a wave of {n} rows ({m} slid), bound {bound:.4f} ms")
 
 
 def check_host_paths(members):
@@ -2546,6 +2582,7 @@ def main() -> int:
     lane = check_compress128(members)
     comp = check_compress(members)
     dec = check_decoders(members)
+    check_push_windows()
     check_host_paths(members)
     checks = {"compress": comp, "compress128": lane, **dec}
     for name, r in checks.items():

@@ -129,6 +129,9 @@ _SIGNATURES = {
     # src, base, n, cur0, out, out_stride, out_len, tail_pos, tail_lit, nrows,
     # hashlog, strict, stream
     "lz4t_compress128": (_I, [_P, _P, _P, _P, _P, _I64, _P, _P, _P, _I, _I, _I, _P]),
+    # old, old_stride, old_len, data, data_stride, lens, dest, next,
+    # next_stride, next_len, nrows, stream
+    "lz4t_push_windows": (_I, [_P, _I64, _P, _P, _I64, _P, _P, _P, _I64, _P, _I, _P]),
 }
 
 

@@ -13,6 +13,8 @@ memory (the reference's explicit OOM-attack guard,
 
 from __future__ import annotations
 
+from ..spec.block import DecodeError as _BlockDecodeError
+
 
 class LZ4Error(Exception):
     """Base class for every error this framework raises on bad data/config."""
@@ -84,3 +86,16 @@ class CodecError(DecompressionError):
     def __init__(self, kind: str):
         super().__init__(kind)
         self.kind = kind
+
+
+class DecodeError(CodecError, _BlockDecodeError):
+    """A block of a frame that a batched launch could not decode
+    (``decompress_frame_parallel``, ``decompress_frames_parallel``): the
+    serial reader's ``CodecError`` of the decoder's kind, so a caller that
+    catches ``LZ4Error`` sees it, and still the block decoder's
+    ``spec.block.DecodeError``, as those entry points (and the JAX
+    package's) have always raised it."""
+
+    def __init__(self, kind: str):
+        object.__setattr__(self, "kind", kind)  # the decoder's error is frozen
+        Exception.__init__(self, kind)

@@ -15,8 +15,9 @@ packing and transfer path, and of its kernel modules' ``dispatch_*`` /
   16-byte units; a large part cut over ``COPY_THREADS`` threads), sent in
   one asynchronous H2D copy on the device's copy stream, and the padded
   ``(N, W)`` rows the kernels take are built on the device by one scatter
-  of units by offsets.  The kernel's stream (PyTorch's current stream)
-  waits on the copy's event.
+  of units by offsets (or, for ``Rows(..., whole=True)``, laid out whole
+  in staging and sent as they are).  The kernel's stream (PyTorch's
+  current stream) waits on the copy's event.
 * **Handle** (``Handle``): a launch's outputs on the device, with its
   lengths and statuses on their way to the host right after it (an
   asynchronous copy into staging and an event: ``meta()`` waits for it).
@@ -280,16 +281,48 @@ class Rows:
     padded ``(N, W)`` uint8 tensor, each left- (``align_right``: right-)
     aligned in a row zero elsewhere, and their ``(N,)`` int32 lengths.
     ``W`` is the longest rounded up to 16, or ``width`` where larger (a
-    multiple of 16)."""
+    multiple of 16).
 
-    def __init__(self, items, align_right: bool = False, width: int = 0):
+    ``whole=True`` lays the rows out whole in staging and sends them as
+    they are: more bytes over the link, no work on the device.  Its rows
+    are left-aligned, and the bytes past each item are not zeroed (they
+    are what the staging buffer held)."""
+
+    def __init__(self, items, align_right: bool = False, width: int = 0, whole: bool = False):
         self.items = items
         self.lens = np.fromiter(map(len, items), np.int64, len(items))
         self.units = _units(self.lens)
         self.align_right = align_right
+        self.whole = whole
         self.width = max(round_up(int(self.lens.max(initial=0)), UNIT), width)
         if self.width % UNIT:
             raise ValueError(f"hostpack: a row width of {self.width} is not a multiple of {UNIT}")
+        if whole and align_right:
+            raise ValueError("hostpack: whole rows are left-aligned")
+
+    @property
+    def nbytes(self) -> int:
+        """Bytes of the items in staging: whole rows, or whole units."""
+        return len(self.lens) * self.width if self.whole else UNIT * int(self.units.sum())
+
+
+def _write_whole_rows(dst: np.ndarray, items, width: int) -> None:
+    """``items`` into ``dst`` at the starts of rows of ``width`` bytes,
+    the rows cut over ``COPY_THREADS`` threads when they are large."""
+
+    def copy(lo, hi):
+        for i in range(lo, hi):
+            x = np.frombuffer(items[i], np.uint8)
+            dst[i * width : i * width + len(x)] = x
+
+    n = len(items)
+    if len(dst) < COPY_SPLIT or n < 2:
+        copy(0, n)
+        return
+    cuts = np.linspace(0, n, min(COPY_THREADS, n) + 1).astype(np.int64)
+    for future in [_copy_pool().submit(copy, int(lo), int(hi))
+                   for lo, hi in zip(cuts[:-1], cuts[1:]) if hi > lo]:
+        future.result()
 
 
 def _scatter_rows(data, lens, part: Rows):
@@ -315,7 +348,7 @@ def upload(dev, *parts):
     plan, total = [], 0
     for part in parts:
         if isinstance(part, Rows):
-            lens_at = total + UNIT * int(part.units.sum())
+            lens_at = total + part.nbytes
             plan.append((part, total, lens_at))
             total = round_up(lens_at + 4 * len(part.lens), ALIGN)
         else:
@@ -328,6 +361,9 @@ def upload(dev, *parts):
     for part, at, lens_at in plan:
         if lens_at is None:
             _copy_into(host[at : at + part.nbytes], [part.reshape(-1).view(np.uint8)])
+        elif part.whole:
+            _write_whole_rows(host[at:lens_at], part.items, part.width)
+            host[lens_at : lens_at + 4 * len(part.lens)].view(np.int32)[:] = part.lens
         else:
             _write_units(host[at:lens_at], part.items, part.lens, part.align_right)
             host[lens_at : lens_at + 4 * len(part.lens)].view(np.int32)[:] = part.lens
@@ -340,6 +376,11 @@ def upload(dev, *parts):
                 t = flat[at : at + part.nbytes].view(_TORCH_DTYPE[part.dtype]).view(part.shape)
                 results.append(t)
                 handed.append(t)
+            elif part.whole:
+                rows = flat[at:lens_at].view(len(part.lens), part.width)
+                lens = flat[lens_at : lens_at + 4 * len(part.lens)].view(torch.int32)
+                results.append((rows, lens))
+                handed += [rows, lens]
             else:
                 # a copy, so that ``flat`` (the items' units) is freed once the
                 # rows are built, not kept for the launch by a view

@@ -23,6 +23,11 @@ Tensor contract of ``decode128`` (shared with ``decompress_v4.decode_v4``):
 
 ``decode128`` also takes ``out_capacity`` only as a multiple of 16: the
 kernel stores its staged output in aligned 16-byte vectors.
+
+``into=(out, out_len, status)`` (``decode128`` and ``decode_big``) has the
+launch write into those tensors (``out`` contiguous ``(N, out_capacity)``,
+16-byte aligned) and return them; ``out`` is then not zeroed past
+``out_len``.
 """
 
 from __future__ import annotations
@@ -79,7 +84,7 @@ def check_staged_capacity(name, out_capacity):
         raise ValueError(f"{name}: out_capacity must be a multiple of 16 below 2 GiB")
 
 
-def decode128(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None):
+def decode128(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None, into=None):
     """Decode a batch of blocks of at most 64 KiB; the CUDA kernel for
     CUDA tensors, the plain version for CPU tensors."""
     if limit > MAX_BLOCK:
@@ -90,22 +95,53 @@ def decode128(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None)
     check_staged_capacity("decode128", out_capacity)
     if comp.is_cuda:
         return launch_decoder(KERNEL, "lz4t_decode128", comp, comp_len, prefix, prefix_len,
-                              limit, out_capacity)
+                              limit, out_capacity, into=into)
     if comp.device.type == "cpu":
-        return decode_plain(comp, comp_len, prefix, prefix_len, limit, out_capacity)
+        return plain_into(decode_plain(comp, comp_len, prefix, prefix_len, limit,
+                                       out_capacity), into)
     raise ValueError(f"decode128: unsupported device {comp.device}")
 
 
+def check_into(into, n_blocks, out_capacity, device):
+    """The tensors a launch is given to write into: ``(out, out_len,
+    status)`` as the decoders' contract has them."""
+    out, out_len, status = into
+    if (out.dtype != torch.uint8 or tuple(out.shape) != (n_blocks, out_capacity)
+            or not out.is_contiguous() or out.data_ptr() % 16):
+        raise ValueError(f"into: out must be a contiguous, 16-byte aligned "
+                         f"({n_blocks}, {out_capacity}) uint8 tensor")
+    for label, t in (("out_len", out_len), ("status", status)):
+        if t.dtype != torch.int32 or tuple(t.shape) != (n_blocks,) or not t.is_contiguous():
+            raise ValueError(f"into: {label} must be a contiguous ({n_blocks},) int32 tensor")
+    for t in into:
+        if t.device != device:
+            raise ValueError(f"into: a tensor is on {t.device}, comp on {device}")
+    return out, out_len, status
+
+
+def plain_into(results, into):
+    """A plain version's ``(out, out_len, status)``, copied into ``into``
+    where it is given."""
+    if into is None:
+        return results
+    for dst, src in zip(check_into(into, *results[0].shape, results[0].device), results):
+        dst.copy_(src)
+    return into
+
+
 def launch_decoder(stats, fn_name, comp, comp_len, prefix, prefix_len, limit, out_capacity,
-                   extra=()):
-    """Allocate outputs and launch one of the CUDA decoders (they share
-    one C signature; ``extra`` arguments, decode_v4's scratch, go before
-    the stream)."""
+                   extra=(), into=None):
+    """Allocate outputs (or take ``into``'s) and launch one of the CUDA
+    decoders (they share one C signature; ``extra`` arguments, decode_v4's
+    scratch, go before the stream)."""
     lib = build.load()
     n_blocks = comp.shape[0]
-    out = torch.zeros((n_blocks, out_capacity), dtype=torch.uint8, device=comp.device)
-    out_len = torch.empty(n_blocks, dtype=torch.int32, device=comp.device)
-    status = torch.empty(n_blocks, dtype=torch.int32, device=comp.device)
+    if into is None:
+        out = torch.zeros((n_blocks, out_capacity), dtype=torch.uint8, device=comp.device)
+        out_len = torch.empty(n_blocks, dtype=torch.int32, device=comp.device)
+        status = torch.empty(n_blocks, dtype=torch.int32, device=comp.device)
+    else:
+        out, out_len, status = check_into(into, n_blocks, out_capacity, comp.device)
     prefix_stride = 0 if prefix.shape[0] == 1 else prefix.stride(0)
     with torch.cuda.device(comp.device):
         h = stats.begin()

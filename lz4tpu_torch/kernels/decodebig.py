@@ -34,6 +34,7 @@ from .decode128 import (
     decode_plain,
     decompress_batch,
     launch_decoder,
+    plain_into,
 )
 from .status import (
     ERR_INVALID_OFFSET,
@@ -48,7 +49,7 @@ SOURCE = "lz4tpu_torch/csrc/decode_big.cu"
 REPLACES = "lz4tpu/kernels/decodebig.py:136"
 
 
-def decode_big(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None):
+def decode_big(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None, into=None):
     """Decode a batch of blocks of any size, built for big ones; the CUDA
     kernel for CUDA tensors, the plain version (``decode128.decode_plain``)
     for CPU tensors."""
@@ -58,9 +59,10 @@ def decode_big(comp, comp_len, prefix, prefix_len, limit: int, out_capacity=None
     check_staged_capacity("decode_big", out_capacity)
     if comp.is_cuda:
         return launch_decoder(KERNEL, "lz4t_decode_big", comp, comp_len, prefix, prefix_len,
-                              limit, out_capacity)
+                              limit, out_capacity, into=into)
     if comp.device.type == "cpu":
-        return decode_plain(comp, comp_len, prefix, prefix_len, limit, out_capacity)
+        return plain_into(decode_plain(comp, comp_len, prefix, prefix_len, limit,
+                                       out_capacity), into)
     raise ValueError(f"decode_big: unsupported device {comp.device}")
 
 

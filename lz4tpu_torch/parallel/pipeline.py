@@ -52,7 +52,9 @@ the first failing block in frame order.  An entry that gets no block gets no lau
   decoded in waves, wave ``w`` being block ``w`` of every linked frame in
   one launch (a group of them under the budget), each block with its own
   frame's 64 KiB carry-over window, which stays on the device from wave to
-  wave.
+  wave.  The waves' blocks go up in one upload, and their decoded rows
+  come back in one fetch, a chunk of waves under the budget (one chunk
+  for a batch of Arrow record-batch buffers).
 
 ``compress_frame_parallel(lane_kernel=True)`` compresses with the lane
 compressor (``kernels/compress128.py``) instead: the input is cut into
@@ -76,7 +78,11 @@ Each entry point runs in a span of its own (``lz4t.compress_frame``,
 a phase: ``lz4t.scan``, ``lz4t.join``, ``lz4t.assemble`` and
 ``lz4t.checksum`` (block checksums, and the wait for a content hash that
 is not ready) here, ``lz4t.launch`` around each launch's host side, and
-``hostpack``'s transfers and waits (``runtime.span``).
+``hostpack``'s transfers and waits (``runtime.span``).  The linked waves
+add ``lz4t.plan`` (the waves' pieces and chunks), ``lz4t.wave`` (one wave
+group's launch and the slide after it) and ``lz4t.push`` (a slide of the
+carry-over windows), and count ``linked_frames``, ``waves``,
+``wave_launches`` and ``window_pushes`` in ``stats()``.
 
 The streaming API takes the same one-launch paths for independent frames:
 ``CompressionSettings`` writes its batches through ``_scalar_blocks``, and
@@ -87,6 +93,7 @@ The streaming API takes the same one-launch paths for independent frames:
 from __future__ import annotations
 
 from collections import Counter, deque
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -96,6 +103,7 @@ from .. import hostpack
 from ..frame.errors import (
     BlockChecksumFail,
     BlockSizeOverflow,
+    DecodeError as FrameDecodeError,
     FrameChecksumFail,
     InputTruncated,
     InvalidBlockSize,
@@ -109,8 +117,9 @@ from ..kernels.decompress_v4 import decode_v4
 from ..kernels import pack
 from ..kernels.pack import budget_groups, check_decoded
 from ..kernels.splice import splice_streams
+from ..kernels.window import push_windows
 from ..kernels.status import OK, STATUS_INCOMPRESSIBLE, STATUS_TO_KIND
-from ..runtime import entry, host_u8, resolve_device, round_up, span
+from ..runtime import count, entry, host_u8, resolve_device, round_up, span, traced
 from ..spec.block import WINDOW_SIZE, DecodeError
 from ..spec.table import U32_SLOTS, U32Table, prime_u32_table
 from ..spec.xxhash32 import xxh32
@@ -603,9 +612,9 @@ def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None
     mesh entry), group ``g + 1`` dispatched before group ``g`` is read
     (``_pipelined``): the decoded blocks as ``memoryview`` rows in frame
     order.  Raises the first failing block's error in frame order (the
-    decoder's ``DecodeError``, or ``BlockSizeOverflow`` for a block that
-    decoded past ``block_maxsize``); groups in flight after it are
-    dropped."""
+    frame layer's ``DecodeError`` of the decoder's kind, or
+    ``BlockSizeOverflow`` for a block that decoded past ``block_maxsize``);
+    groups in flight after it are dropped."""
     if not payloads:
         return []
     if lane_kernel is False:
@@ -648,7 +657,8 @@ def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None
 
     _pipelined(units, dispatch, collect)
     if first_bad is not None:
-        raise first_bad[1]
+        error = first_bad[1]
+        raise FrameDecodeError(error.kind) if isinstance(error, DecodeError) else error
     return [row for a in sorted(fetched) for row in fetched[a]]
 
 
@@ -693,26 +703,102 @@ def _decode_independent(reader, blocks, expected_sum, dictionary, devs, verify_c
     return result
 
 
-def _push_windows(windows, wlen, slots, data, lens):
-    """Slide the carry-over windows of the frames ``slots`` over their new
-    bytes, on the device: ``windows[slots]`` becomes the last 64 KiB of
-    ``window | data[k, :lens[k]]`` (right-aligned rows) and ``wlen[slots]``
-    grows by ``lens``, up to 64 KiB.  ``windows`` and ``wlen`` are updated
-    in place."""
-    w = WINDOW_SIZE
-    lens = lens.to(torch.int64)
-    # byte j of the new window is byte t = lens - w + j of the data, or,
-    # where t < 0, byte w + t of the old window
-    t = lens[:, None] - w + torch.arange(w, device=data.device)[None, :]
-    new = torch.gather(data, 1, t.clamp(min=0))
-    old = torch.gather(windows[slots], 1, (t + w).clamp(max=w - 1))
-    windows[slots] = torch.where(t >= 0, new, old)
-    wlen[slots] = torch.clamp(wlen[slots] + lens.to(torch.int32), max=w)
+@traced("lz4t.push")
+def _push_windows(old, old_len, data, lens, dest, new, new_len):
+    """Slide the carry-over windows of a wave's rows ``old`` (their
+    lengths ``old_len``) over their new bytes ``data[k, :lens[k]]`` into
+    the next wave's rows ``new[dest[k]]`` (``dest[k]`` -1: the frame has no
+    next block): one launch of ``kernels.window.push_windows``."""
+    count(window_pushes=1)
+    push_windows(old, old_len, data, lens, dest, new, new_len)
 
 
-#: device bytes that ``_push_windows`` takes a row beside its data: the
-#: int64 byte positions and their two clamped copies, and four window rows
+#: device bytes that a wave's row takes beside its output and compressed
+#: block, past its own window: the next wave's window row and the plain
+#: version's int64 byte positions and copies
 PUSH_BYTES = 28 * WINDOW_SIZE
+
+
+@dataclass
+class _Piece:
+    """Rows ``a:b`` of wave ``w`` in the wave's order (its compressed
+    blocks, then its stored ones): a budget group of compressed blocks,
+    decoded in one launch (``decoder`` set), or the wave's stored blocks,
+    which only slide their windows.  ``dest`` is each row's row in wave
+    ``w + 1`` (-1: none).  A row takes ``cap`` bytes of output (0 for a
+    stored block) and ``rest`` bytes besides; ``k`` is the place of the
+    decoded rows in their chunk's output."""
+
+    w: int
+    a: int
+    b: int
+    payloads: list
+    dest: np.ndarray
+    cap: int
+    rest: int
+    limit: int = 0
+    decoder: object = None
+    maxsizes: np.ndarray = None
+    last: bool = False  # the wave's last launch: raises its size overflow
+    closes: bool = False  # the wave's last piece: its windows are let go after it
+    k: int = 0
+
+
+def _wave_plan(linked):
+    """The pieces of ``linked``'s waves, in wave order, and the rows of
+    each wave (the frames' slots in ``linked``)."""
+    chains = [blocks for _, _, blocks, _ in linked]
+    order = []
+    for w in range(max(map(len, chains), default=0)):
+        todo = [s for s, c in enumerate(chains) if w < len(c) and c[w][0]]
+        stored = [s for s, c in enumerate(chains) if w < len(c) and not c[w][0]]
+        order.append((todo, stored))
+    rows = [todo + stored for todo, stored in order]
+    pieces = []
+    for w, (todo, stored) in enumerate(order):
+        at = dict(zip(rows[w + 1], range(len(rows[w + 1])))) if w + 1 < len(rows) else {}
+        dest = np.array([at.get(slot, -1) for slot in rows[w]], np.int32)
+        if todo:
+            count(waves=1)
+            maxsizes = np.array([linked[slot][1].block_maxsize for slot in todo])
+            limit = int(maxsizes.max())
+            payloads = [chains[slot][w][1] for slot in todo]
+            width = round_up(max(map(len, payloads)), 16)
+            # a launch's rows: output, compressed block, its window, the slide's
+            cap, rest = round_up(limit + width, 16), width + WINDOW_SIZE + PUSH_BYTES
+            cuts = budget_groups(len(todo), cap + rest)
+            for g, (a, b) in enumerate(cuts):
+                pieces.append(_Piece(w, a, b, payloads[a:b], dest[a:b], cap, rest, limit,
+                                     decode128 if limit <= MAX_BLOCK else decode_big,
+                                     maxsizes[a:b], g == len(cuts) - 1))
+        n = len(todo)
+        for a, b in budget_groups(len(stored), WINDOW_SIZE + PUSH_BYTES):
+            pieces.append(_Piece(w, n + a, n + b, [chains[slot][w][1] for slot in stored[a:b]],
+                                 dest[n + a : n + b], 0, WINDOW_SIZE + PUSH_BYTES))
+        pieces[-1].closes = True
+    return pieces, rows
+
+
+def _chunks(pieces):
+    """Consecutive pieces in chunks under ``DECODE_BUDGET`` (a piece over
+    it alone): each chunk one upload of its blocks, one output tensor of
+    its decoded rows at the widest ``cap`` among them, and one fetch.
+    Sets each decoding piece's ``k``; yields ``(cost, pieces, decoded
+    rows, cap)``."""
+    chunk, rows, cap, rest = [], 0, 0, 0
+    for p in pieces + [None]:
+        n = 0 if p is None else p.b - p.a
+        out = 0 if p is None or p.decoder is None else n
+        if chunk and (p is None or (rows + out) * max(cap, p.cap) + rest + n * p.rest
+                      > pack.DECODE_BUDGET):
+            yield rows * cap + rest, chunk, rows, cap
+            chunk, rows, cap, rest = [], 0, 0, 0
+        if p is not None:
+            chunk.append(p)
+            p.k = rows
+            rows += out
+            cap = max(cap, p.cap)
+            rest += n * p.rest
 
 
 @entry("decompress_frames")
@@ -732,17 +818,24 @@ def decompress_frames_parallel(
     frame's carry-over window as its prefix (the dictionary's last 64 KiB
     before the first block).
 
-    The windows are one right-aligned ``(frames, 65536)`` tensor that is
-    updated on the device after each wave, a stored block's payload
-    included; each wave's output stays on the device until the end, and
-    only lengths and statuses come back per wave.  The windows take 64 KiB
-    a linked frame: state bounded by the frames, not by the budget.  A
-    wave is routed by the largest ``block_maxsize`` in it, which is also
-    its memory limit: up to 64 KiB to ``decode128``, larger to
+    The windows are right-aligned 64 KiB rows on the device, one a frame
+    of a wave: each wave's rows (its decoded blocks, then its stored ones)
+    slide into the next wave's rows in one launch a wave group
+    (``kernels/window.py``), a stored block's payload included, so at most
+    two waves' windows are held.  The waves run in chunks of whole wave
+    groups under ``DECODE_BUDGET``: a chunk's blocks go up in one upload
+    of whole rows, each group decodes into the chunk's one output tensor
+    and its lengths and statuses (``into=``), and the chunk's rows come
+    back in one ``hostpack.Handle`` (its lengths, then one fetch of the
+    bytes they hold).  A wave is
+    routed by the largest ``block_maxsize`` in it, which is also its
+    memory limit: up to 64 KiB to ``decode128``, larger to
     ``decode_big``.  A block that decodes past its own frame's
-    ``block_maxsize`` raises ``BlockSizeOverflow``; content checksums are
-    checked per frame at the end.  Independent-block frames go through the
-    decode of ``decompress_frame_parallel``.
+    ``block_maxsize`` raises ``BlockSizeOverflow``, a block that fails to
+    decode the frame layer's ``DecodeError`` (a ``CodecError`` of the
+    decoder's kind), which wins over an overflow in the same wave; content
+    checksums are checked per frame at the end.  Independent-block frames
+    go through the decode of ``decompress_frame_parallel``.
 
     With ``mesh`` (in place of ``device``) the independent frames decode
     over the mesh, as in ``decompress_frame_parallel``, and the waves run
@@ -787,78 +880,88 @@ def decompress_frames_parallel(
     if not linked:
         return results
 
-    heads = hostpack.Rows([dictionaries[fi] for fi, *_ in linked], align_right=True)
-    (windows, wlen), = hostpack.upload(dev, heads)
-    if windows.shape[1] < WINDOW_SIZE:
-        windows = torch.nn.functional.pad(windows, (WINDOW_SIZE - windows.shape[1], 0))
-    # per frame, in block order: the payload of a stored block, or (unit,
-    # row) of a decoded one
-    pieces = [[] for _ in linked]
-    # the waves' units in order: pushes of stored blocks (nothing stays in
-    # flight) and launches of budget groups; the last group of a wave
-    # raises the wave's size overflow
-    units = []
-    for w in range(max(len(blocks) for _, _, blocks, _ in linked)):
-        todo, stored = [], []
-        for slot, (_, _, blocks, _) in enumerate(linked):
-            if w < len(blocks):
-                (todo if blocks[w][0] else stored).append(slot)
-        payloads = [linked[slot][2][w][1] for slot in stored]
-        for slot, payload in zip(stored, payloads):
-            pieces[slot].append(payload)
-        for a, b in budget_groups(len(stored), WINDOW_SIZE + PUSH_BYTES):
-            units.append((0, 0, ("push", stored[a:b], [p[-WINDOW_SIZE:] for p in payloads[a:b]])))
-        if not todo:
-            continue
-        maxsizes = np.array([linked[slot][1].block_maxsize for slot in todo])
-        limit = int(maxsizes.max())
-        decoder = decode128 if limit <= MAX_BLOCK else decode_big
-        payloads = [linked[slot][2][w][1] for slot in todo]
-        width = round_up(max(map(len, payloads)), 16)
-        # a group's rows: output, compressed block, its window, the push's temporaries
-        row = round_up(limit + width, 16) + width + WINDOW_SIZE + PUSH_BYTES
-        cuts = budget_groups(len(todo), row)
-        for g, (a, b) in enumerate(cuts):
-            for k, slot in enumerate(todo[a:b]):
-                pieces[slot].append((len(units), k))
-            units.append((0, (b - a) * row, ("wave", len(units), todo[a:b], payloads[a:b],
-                                             decoder, limit, maxsizes[a:b], g == len(cuts) - 1)))
+    count(linked_frames=len(linked))
+    with span("lz4t.plan"):
+        pieces, rows = _wave_plan(linked)
+        units = [(0, cost, work) for cost, *work in _chunks(pieces)]
+    # per frame, in block order: the payload of a stored block, or (piece,
+    # row of its chunk) of a decoded one
+    parts = [[] for _ in linked]
+    for p in pieces:
+        for k, slot in enumerate(rows[p.w][p.a : p.b]):
+            parts[slot].append((id(p), p.k + k) if p.decoder is not None else p.payloads[k])
+    # the windows of each wave's rows, right-aligned, and their lengths: the
+    # dictionaries' tails before the first wave; wave w + 1's are written by
+    # wave w's slides, so that one wave's are read while the next's are made
+    heads = [dictionaries[linked[slot][0]] for slot in rows[0]] if rows else []
+    if any(heads):
+        (first, first_len), = hostpack.upload(dev, hostpack.Rows(heads, align_right=True))
+        if first.shape[1] < WINDOW_SIZE:
+            first = torch.nn.functional.pad(first, (WINDOW_SIZE - first.shape[1], 0))
+    else:
+        first = torch.zeros((len(heads), WINDOW_SIZE), dtype=torch.uint8, device=dev)
+        first_len = torch.zeros(len(heads), dtype=torch.int32, device=dev)
+    windows = {0: (first, first_len)}
     decoded = {}
     overflow = False
 
     def dispatch(work):
-        if work[0] == "push":
-            _, slots, tails = work
-            (data, lens), slots = hostpack.upload(dev, hostpack.Rows(tails),
-                                                  np.asarray(slots, np.int64))
-            with span("lz4t.launch"):
-                _push_windows(windows, wlen, slots, data, lens)
-            return None
-        _, _, slots, payloads, decoder, limit, _, _ = work
-        (comp, comp_len), slots = hostpack.upload(dev, hostpack.Rows(payloads),
-                                                  np.asarray(slots, np.int64))
-        with span("lz4t.launch"):
-            out, out_len, status = decoder(comp, comp_len, windows[slots], wlen[slots], limit)
-            _push_windows(windows, wlen, slots, out, out_len)
-            return hostpack.Handle(out, out_len, status)
+        chunk, n_rows, cap = work
+        *blocks, dest = hostpack.upload(
+            dev, *(hostpack.Rows(p.payloads, whole=True) for p in chunk),
+            np.concatenate([p.dest for p in chunk]))
+        # the chunk's decoded rows, and their lengths and statuses
+        out = torch.empty((n_rows, cap), dtype=torch.uint8, device=dev)
+        meta = torch.empty((2, n_rows), dtype=torch.int32, device=dev)
+        d = 0
+        for p, (comp, comp_len) in zip(chunk, blocks):
+            n = p.b - p.a
+            if p.w + 1 < len(rows) and p.w + 1 not in windows:
+                m = len(rows[p.w + 1])
+                windows[p.w + 1] = (torch.empty((m, WINDOW_SIZE), dtype=torch.uint8, device=dev),
+                                    torch.empty(m, dtype=torch.int32, device=dev))
+            old, old_len = (t[p.a : p.b] for t in windows[p.w])
+            slide = (dest[d : d + n], *windows.get(p.w + 1, ())) if (p.dest >= 0).any() else None
+            d += n
+            if p.decoder is None:
+                if slide:
+                    _push_windows(old, old_len, comp, comp_len, *slide)
+            else:
+                with span("lz4t.wave"):
+                    count(wave_launches=1)
+                    with span("lz4t.launch"):
+                        data, data_len, _ = p.decoder(
+                            comp, comp_len, old, old_len, p.limit, cap,
+                            into=(out[p.k : p.k + n], *meta[:, p.k : p.k + n]))
+                    if slide:
+                        _push_windows(old, old_len, data, data_len, *slide)
+            if p.closes:
+                del windows[p.w]
+        return hostpack.Handle(out, meta) if n_rows else None
 
     def collect(work, handle):
         nonlocal overflow
-        _, unit, _, _, _, _, maxsizes, last = work
-        lens, status = handle.meta()
-        # a decode error anywhere in the wave wins over a size overflow
-        if (status != OK).any():
-            raise DecodeError(STATUS_TO_KIND[int(status[status != OK][0])])
-        overflow |= bool((lens > maxsizes).any())
-        if last and overflow:
-            raise BlockSizeOverflow("a block decompressed to more data than allowed")
-        decoded[unit] = handle.collect(lens)
+        chunk = work[0]
+        (lens, status), = handle.meta()
+        for p in chunk:
+            if p.decoder is None:
+                continue
+            st, got = status[p.k : p.k + p.b - p.a], lens[p.k : p.k + p.b - p.a]
+            # a decode error anywhere in the wave wins over a size overflow
+            if (st != OK).any():
+                raise FrameDecodeError(STATUS_TO_KIND[int(st[st != OK][0])])
+            overflow |= bool((got > p.maxsizes).any())
+            if p.last and overflow:
+                raise BlockSizeOverflow("a block decompressed to more data than allowed")
+        fetched = handle.collect(lens)
+        for p in chunk:
+            decoded[id(p)] = fetched
 
     _pipelined(units, dispatch, collect)
     # each frame's content is hashed from its pieces beside the joins
     digests = []
     with span("lz4t.join"):
-        for (fi, reader, _, expected), ps in zip(linked, pieces):
+        for (fi, reader, _, expected), ps in zip(linked, parts):
             ps = [decoded[p[0]][p[1]] if isinstance(p, tuple) else p for p in ps]
             if verify_checksums and reader.flags.content_checksum and expected is not None:
                 digests.append((content_hash(ps, dev), expected))

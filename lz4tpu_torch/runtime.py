@@ -95,7 +95,8 @@ ENTRIES = ("compress_frame", "decompress_frame", "decompress_frames")
 #: the counters of ``stats()`` besides ``calls`` and ``launches``
 COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes", "staging_allocs",
             "staging_alloc_bytes", "staging_waits", "content_hashes_beside",
-            "content_hash_waits")
+            "content_hash_waits", "linked_frames", "waves", "wave_launches",
+            "window_pushes")
 _LOCK = threading.Lock()
 _CALLS = dict.fromkeys(ENTRIES, 0)
 _COUNTS = dict.fromkeys(COUNTERS, 0)
@@ -143,10 +144,10 @@ def entry(name: str):
 
 def _kernels() -> list[KernelStats]:
     from .kernels import (compress, compress128, decode128, decodebig, decompress_v3,
-                          decompress_v4)
+                          decompress_v4, window)
 
     return [m.KERNEL for m in (compress, compress128, decode128, decodebig, decompress_v4,
-                               decompress_v3)]
+                               decompress_v3, window)]
 
 
 def stats() -> dict:

@@ -104,6 +104,24 @@ def test_upload_rows_equal_the_row_by_row_packing(case, align_right, split, monk
     assert bytes(raw.numpy()) == b"abc"
 
 
+@pytest.mark.parametrize("split", [hostpack.COPY_SPLIT, 64])
+@pytest.mark.parametrize("case", sorted(ITEMS))
+def test_whole_rows_upload_equals_the_row_by_row_packing_up_to_each_length(case, split,
+                                                                         monkeypatch):
+    """``Rows(..., whole=True)``: the same rows as the scatter, up to each
+    item's length, beside other parts of the same upload."""
+    monkeypatch.setattr(hostpack, "COPY_SPLIT", split)  # one thread writes staging, or four
+    items = items_of(sum(map(ord, case)) + 1, *ITEMS[case])
+    want_rows, want_lens = ref_pack_rows(items)
+    arr = np.arange(5, dtype=np.int32)
+    (rows, lens), got_arr = hostpack.upload("cpu", hostpack.Rows(items, whole=True), arr)
+    assert rows.shape == want_rows.shape and torch.equal(lens, want_lens)
+    assert [bytes(rows[i, :n].numpy()) for i, n in enumerate(lens.tolist())] == items
+    assert got_arr.tolist() == arr.tolist()
+    with pytest.raises(ValueError):
+        hostpack.Rows(items, align_right=True, whole=True)
+
+
 @pytest.mark.parametrize("prefixes", ["none", "shared", "shared long", "per block"])
 def test_upload_batch_prefixes_equal_the_row_by_row_packing(prefixes):
     blocks = items_of(3, 9, 500)
