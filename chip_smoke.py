@@ -41,11 +41,12 @@ Phases, in order; any mismatch or exception exits non-zero:
 3. the 64 KiB independent-block path at full size: each Silesia stand-in
    member (scale 1.0: 211,938,580 bytes) through ``compress_frame_parallel(block_size=65536,
    content_checksum=True)`` and ``decompress_frame_parallel`` on the card,
-   plus a dictionary frame and a 4 MiB-block frame (decoded by decode_big
-   and, with ``lane_kernel=False``, by decompress_v4);
+   plus a dictionary frame and a 4 MiB-block frame (decoded by
+   decompress_v4, the default route for big blocks, and, with
+   ``lane_kernel=True``, by decode_big);
 4. the big-block and linked-frame path at full size, over the same
    corpus: (a) each member as an independent frame of 4 MiB blocks
-   (decode_big); (b) each member cut
+   (decompress_v4); (b) each member cut
    into 1 MiB segments, each a linked frame of 64 KiB blocks from
    ``compress_frame_parallel(parallel_linked=True)``, all decoded by one
    ``decompress_frames_parallel`` call (waves on decode128); (c) each
@@ -55,7 +56,7 @@ Phases, in order; any mismatch or exception exits non-zero:
 5. the lane compressor's path at full size, over the same corpus, through
    ``compress_frame_parallel(lane_kernel=True)``: (a) each member as an
    independent frame of true 4 MiB blocks, each block 128 chunks spliced
-   (decode_big); (b) each member at 64 KiB independent blocks (decode128);
+   (decompress_v4); (b) each member at 64 KiB independent blocks (decode128);
    (c) the 1 MiB segments as ``parallel_linked`` lane frames, all decoded by
    one ``decompress_frames_parallel`` call, and no larger than the same
    segments as independent lane frames; (d) a dictionary frame, independent
@@ -66,7 +67,7 @@ Phases, in order; any mismatch or exception exits non-zero:
 6. the reference's own entry points, over the same corpus: (a) every
    member through ``CompressionSettings()`` (4 MiB independent blocks,
    content checksum: one compress.cu launch a member) and
-   ``decompress_frame`` (one decode_big launch), in turns with the
+   ``decompress_frame`` (one decompress_v4 launch), in turns with the
    per-block path (a callable engine of ``compress_block_cuda``, a
    ``decode_block`` loop); both frames equal to phase 4a's; (b) one member
    at 64 KiB blocks with block checksums and a 64 KiB dictionary
@@ -97,7 +98,7 @@ Phases, in order; any mismatch or exception exits non-zero:
    over the same corpus: (a) ``CompressionSettings().level(9)`` at 4 MiB
    independent blocks over dickens on ``"cuda"`` (compress.cu's greedy
    payloads, the native HC parse) and on ``"native"``, frames equal, no
-   larger than 4a's and read back on ``"cuda"`` (decode_big), and the
+   larger than 4a's and read back on ``"cuda"`` (decompress_v4), and the
    native HC parse beside ``spec.hc`` on a 256 KiB head; (b) the default
    writer and reader on ``"native"`` with ``threads(1)`` and
    ``threads(0)``, frames equal to 6a's; (c) 6c's linked frame on
@@ -110,7 +111,8 @@ Phases, in order; any mismatch or exception exits non-zero:
    (b) 200,000 under 64 KiB, each through ``read_all`` on ``"cuda"``,
    ``decompress_frame_parallel`` (and ``lane_kernel=False``) and
    ``read_all`` on ``"native"``, both in one ``decompress_frames_parallel``
-   call; (c) 25,000 one-block linked frames of 4 MiB maxsize in one
+   call (the default route takes (a)'s groups to decompress_v4); (c)
+   25,000 one-block linked frames of 4 MiB maxsize in one
    ``decompress_frames_parallel`` call (one wave).  Each call prints its
    peak device memory, launches (its groups) and wall time, and fails if
    the peak passes ``DECODE_BUDGET`` + the packed compressed rows + the
@@ -163,10 +165,12 @@ RUNNER_SHARD = 16 << 20  # phase 7 (d): the runner's shard, 13 of them at full s
 F1_BLOCKS = {"4 MiB": 25_000, "64 KiB": 200_000}
 F1_LINKED = 25_000
 # phase 11: the launches of phases 3-8 and of phase 9 at full scale, as the
-# runs before the transport (PERF.md: B3 for 3-8, R2 for 9) counted them
-LAUNCHES_3_8 = {"compress": 1552, "decode_big": 149, "compress128": 272, "decode128": 477,
-                "decode_v4": 709, "decode_v3": 1}
-LAUNCHES_9 = {"decode_big": 440, "decode128": 39, "decode_v4": 112}
+# runs before the transport (PERF.md: B3 for 3-8, R2 for 9) counted them,
+# with the default route's groups of big blocks on decode_v4 in place of
+# decode_big (the same launches, another kernel)
+LAUNCHES_3_8 = {"compress": 1552, "decode_big": 74, "compress128": 272, "decode128": 477,
+                "decode_v4": 784, "decode_v3": 1}
+LAUNCHES_9 = {"decode_big": 143, "decode128": 39, "decode_v4": 409}
 PAGEABLE_MAX = 8 << 10  # phase 11: the largest pageable copy a frame path may make
 
 
@@ -1296,7 +1300,7 @@ def phase_main(members, scale: float):
               f"kernel ms: compress {ms['compress']:.2f} decode128 {ms['decode128']:.2f} "
               f"({nc} blocks decoded, {ns} stored)")
     # a dictionary frame (shared 64 KiB prefix) and a 4 MiB-block frame
-    # (decode_big; decompress_v4 with lane_kernel=False)
+    # (decompress_v4 by default; decode_big with lane_kernel=True)
     names = list(members)
     dic = members[names[0]][-65536:]
     data = members[names[7]]
@@ -1309,9 +1313,9 @@ def phase_main(members, scale: float):
           f"{len(frame) / len(data):.4f}, round trip equal")
     data = members[names[-1]]
     frame = lt.compress_frame_parallel(data, 4 << 20)
-    if lt.decompress_frame_parallel(frame) != data:
+    if lt.decompress_frame_parallel(frame, lane_kernel=True) != data:
         fail("main path: 4 MiB-block frame does not round-trip on decode_big")
-    if lt.decompress_frame_parallel(frame, lane_kernel=False) != data:
+    if lt.decompress_frame_parallel(frame) != data:
         fail("main path: 4 MiB-block frame does not round-trip on decompress_v4")
     meter.compressed(frame, len(data))
     meter.decoded("decode_big", frame, len(data))
@@ -1351,7 +1355,7 @@ def phase_big_and_linked(members):
     reports = {}
 
     # (a) independent frames of 4 MiB blocks
-    meter = PathMeter("(a) big blocks", ("compress", "decode_big"))
+    meter = PathMeter("(a) big blocks", ("compress", "decode_v4"))
     n_out = 0
     t_comp = t_dec = 0.0
     frames_4a = {}  # phase 6 holds the streaming writer's frames equal to these
@@ -1364,7 +1368,7 @@ def phase_big_and_linked(members):
         if back != data:
             fail(f"(a) big blocks: {name} does not round-trip")
         meter.compressed(frame, len(data))
-        meter.decoded("decode_big", frame, len(data))
+        meter.decoded("decode_v4", frame, len(data))
         n_out += len(frame)
     summaries = {"4a": rates("(a) 4 MiB independent blocks", total, n_out, t_comp, t_dec)}
     reports["a"] = meter.finish()
@@ -1475,8 +1479,8 @@ def phase_lane(members, scalar):
 
     # (a) true 4 MiB independent blocks, 128 spliced chunks each
     reports["5a"], frames_5a, summary_5a = round_trips(
-        "(5a) lane, 4 MiB independent blocks", ("compress128", "decode_big"), 4 << 20,
-        "decode_big", "4a")
+        "(5a) lane, 4 MiB independent blocks", ("compress128", "decode_v4"), 4 << 20,
+        "decode_v4", "4a")
     # (b) 64 KiB independent blocks, 2 spliced chunks each
     reports["5b"], _, _ = round_trips("(5b) lane, 64 KiB independent blocks",
                                       ("compress128", "decode128"), 65536, "decode128", "3")
@@ -1509,11 +1513,11 @@ def phase_lane(members, scalar):
         fail("(5c) linked lane frames are larger than independent lane frames of the same segments")
 
     # (d) a dictionary frame: independent at 4 MiB blocks, linked at 64 KiB
-    meter = PathMeter("(5d) lane, dictionary frames", ("compress128", "decode_big", "decode128"))
+    meter = PathMeter("(5d) lane, dictionary frames", ("compress128", "decode_v4", "decode128"))
     dic = members[names[0]][-65536:]
     data = members[names[7]]
     sizes = {}
-    for label, kw, decoder in (("independent, 4 MiB blocks", dict(block_size=4 << 20), "decode_big"),
+    for label, kw, decoder in (("independent, 4 MiB blocks", dict(block_size=4 << 20), "decode_v4"),
                                ("linked, 64 KiB blocks",
                                 dict(block_size=65536, parallel_linked=True), "decode128")):
         frame = lt.compress_frame_parallel(data, dictionary=dic, dictionary_id=1,
@@ -1612,7 +1616,7 @@ def phase_streaming(members, frames_4a):
     reports = {}
 
     # (a) the default writer and reader, batched, in turns with the per-block path
-    meter = PathMeter("(6a) default writer and reader", ("compress", "decode_big"))
+    meter = PathMeter("(6a) default writer and reader", ("compress", "decode_v4"))
     secs = {(path, op): 0.0 for path in ("batched", "per block") for op in ("comp", "dec")}
     batched_frames = {}
     for i, (name, data) in enumerate(members.items()):
@@ -1633,11 +1637,11 @@ def phase_streaming(members, frames_4a):
             if back != data:
                 fail(f"(6a) {path}: {name} does not round-trip")
             meter.compressed(frame, len(data))
-            meter.decoded("decode_big", frame, len(data))
+            meter.decoded("decode_v4", frame, len(data))
         if not frames["batched"] == frames["per block"] == frames_4a[name]:
             fail(f"(6a) {name}: the batched, per-block and phase 4a frames differ")
         _, _, nc, ns = frame_stats(frames["batched"])
-        want = {"compress": 1, "decode_big": 1} if nc else {"compress": 1}
+        want = {"compress": 1, "decode_v4": 1} if nc else {"compress": 1}
         if counts["batched"] != want:
             fail(f"(6a) {name}: the batched path launched {counts['batched']}, not {want}")
         batched_frames[name] = frames["batched"]
@@ -1876,7 +1880,7 @@ def phase_mesh(members, frames, summaries):
     # (c) phase 5a's lane frames of 4 MiB blocks on four entries; each
     # launch's chunks are whole blocks' (a spy on the wrapper, which counts)
     part = "(7c) lane, 4 MiB independent blocks, mesh cuda:0 x4"
-    meter = PathMeter(part, ("compress128", "decode_big"))
+    meter = PathMeter(part, ("compress128", "decode_v4"))
     rows = []
     real = pipeline.compress128
 
@@ -1904,7 +1908,7 @@ def phase_mesh(members, frames, summaries):
             if back != data:
                 fail(f"{part}: {name} does not round-trip")
             meter.lane_compressed(frame, len(data))
-            meter.decoded("decode_big", frame, len(data))
+            meter.decoded("decode_v4", frame, len(data))
     finally:
         pipeline.compress128 = real
     rates(part, total, sum(map(len, frames["5a"].values())), t_comp, t_dec)
@@ -2030,7 +2034,7 @@ def phase_native(members, frames_4a, mirror, smi):
     """The host engine on the card's machine: (8a) ``level(9)`` at 4 MiB
     independent blocks over dickens on ``"cuda"`` (greedy payloads from
     compress.cu, the native HC parse) and on ``"native"``: frames equal, no
-    larger than 4a's, read back on ``"cuda"`` (decode_big); the native HC
+    larger than 4a's, read back on ``"cuda"`` (decompress_v4); the native HC
     parse beside ``spec.hc`` on a 256 KiB head; (8b) the default writer and
     reader over the corpus on ``"native"`` with ``threads(1)`` and
     ``threads(0)``, frames equal to 6a's; (8c) 6c's linked frame on
@@ -2059,7 +2063,7 @@ def phase_native(members, frames_4a, mirror, smi):
     # (a) level 9 at 4 MiB independent blocks, on "cuda" and on "native"
     name = names[0]
     data = members[name]
-    meter = PathMeter(f"(8a) level 9, {name}, cuda", ("compress", "decode_big"))
+    meter = PathMeter(f"(8a) level 9, {name}, cuda", ("compress", "decode_v4"))
     frame_cuda, t_cuda = wall(lambda: lt.CompressionSettings().level(9).compress_bytes(data))
     meter.compressed(frames_4a[name], len(data))  # compress.cu made 4a's greedy payloads
     back = lt.decompress_frame(frame_cuda)
@@ -2067,7 +2071,7 @@ def phase_native(members, frames_4a, mirror, smi):
         "native").level(9).compress_bytes(data))
     back_native = lt.decompress_frame(frame_native)
     for frame in (frame_cuda, frame_native):
-        meter.decoded("decode_big", frame, len(data))
+        meter.decoded("decode_v4", frame, len(data))
     report = meter.finish()
     if frame_cuda != frame_native:
         fail(f"(8a) {name}: the level-9 frames of cuda and native differ")
@@ -2194,7 +2198,8 @@ def phase_f1(smi):
     allocated before it) must stay under the budget + the packed
     compressed rows + the content + 256 MiB, plus 64 KiB a linked frame for
     the windows and, on decompress_v4, its scratch (``SCRATCH_BUDGET`` of
-    ``csrc/decode_v4.cu``, at the group's shape)."""
+    ``csrc/decode_v4.cu``, at the group's shape): the default route takes
+    the 4 MiB frame to decompress_v4 too."""
     import torch
 
     import lz4tpu_torch as lt
@@ -2235,19 +2240,22 @@ def phase_f1(smi):
         if peak > bound:
             fail(f"(9) {label}: peak device memory {peak:,d} B over the bound {bound:,d} B")
 
+    v4_scratch = {}  # the default route's decompress_v4 scratch, by maxsize
     for part, (name, (frame, content)) in zip("ab", frames.items()):
         n = len(content)
-        kernel = "decode_big" if maxsize[name] > 64 << 10 else "decode128"
+        kernel = "decode_v4" if maxsize[name] > 64 << 10 else "decode128"
         out_capacity = round_up(maxsize[name] + 16, 16)
         bound = DECODE_BUDGET + rows[name] + n + 256 * mib
+        group = budget_groups(n, out_capacity + 16)[0][1]
+        scratch = build.load().lz4t_decode_v4_scratch(group, 16, out_capacity)
+        v4_scratch[name] = scratch if kernel == "decode_v4" else 0
+        default = bound + v4_scratch[name]
         print(f"  ({part}) {n:,d} blocks of one byte, {name} maxsize, {len(frame):,d} B of "
               f"frame: {n * (out_capacity + 16) / 1e9:,.1f} GB of output rows as one launch")
         measured(f"read_all cuda, {name}", lambda: lt.LZ4FrameReader(frame).read_all(),
-                 content, bound, (kernel,))
+                 content, default, (kernel,))
         measured(f"decompress_frame_parallel, {name}",
-                 lambda: lt.decompress_frame_parallel(frame), content, bound, (kernel,))
-        group = budget_groups(n, out_capacity + 16)[0][1]
-        scratch = build.load().lz4t_decode_v4_scratch(group, 16, out_capacity)
+                 lambda: lt.decompress_frame_parallel(frame), content, default, (kernel,))
         measured(f"decompress_frame_parallel(lane_kernel=False), {name}",
                  lambda: lt.decompress_frame_parallel(frame, lane_kernel=False), content,
                  bound + scratch, ("decode_v4",))
@@ -2256,8 +2264,8 @@ def phase_f1(smi):
     both = [content for _, content in frames.values()]
     measured("decompress_frames_parallel, both frames",
              lambda: lt.decompress_frames_parallel([f for f, _ in frames.values()]), both,
-             DECODE_BUDGET + sum(rows.values()) + sum(map(len, both)) + 256 * mib,
-             ("decode_big", "decode128"))
+             DECODE_BUDGET + sum(rows.values()) + sum(map(len, both)) + 256 * mib
+             + max(v4_scratch.values()), ("decode_v4", "decode128"))
     linked = [f1_frame(1, 0x70, linked=True, first=j) for j in range(F1_LINKED)]
     print(f"  (c) {len(linked):,d} one-block linked frames of 4 MiB maxsize, one wave")
     measured("decompress_frames_parallel, linked",

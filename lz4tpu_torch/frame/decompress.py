@@ -14,7 +14,7 @@ a ``torch.device``, or a callable with the spec's ``decompress_block``
 contract.  ``read_all`` of a fresh reader of an independent-block frame
 reads the whole block chain, then decodes every compressed block at once:
 on a device engine in one launch a group of blocks (decode128 for 64 KiB
-blocks, decode_big for larger ones), on ``"native"`` on a pool of threads
+blocks, decode_v4 for larger ones), on ``"native"`` on a pool of threads
 (``host_threads``: ``$LZ4TPU_HOST_THREADS``, or one a CPU, at most 8),
 each block straight into its slot.  The groups, and the native slots,
 hold at most ``kernels.pack.DECODE_BUDGET`` bytes, so the memory of a

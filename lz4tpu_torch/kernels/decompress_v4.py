@@ -4,9 +4,10 @@ model of the kernels' steps (``decode_v4_segmented_plain``) that the tests
 hold equal to the plain version.
 
 Counterpart of ``lz4tpu/kernels/decompress_v4.py``: the decoder for
-batches too small for the lane path and for ``lane_kernel=False``.  Blocks
-over 64 KiB go to ``decodebig.decode_big`` by default; this kernel takes
-them too when it is asked to.  The TPU version's ``V4_MAX_COMP``/``V4_MAX_OUT``
+batches too small for the lane path and for ``lane_kernel=False``.  The
+frame path also sends it the blocks of frames of blocks over 64 KiB by
+default; ``decodebig.decode_big`` takes them with ``lane_kernel=True``.
+The TPU version's ``V4_MAX_COMP``/``V4_MAX_OUT``
 limits were SMEM/VMEM workarounds and have no counterpart: comp and output
 live in device memory.  Tensor contract: the same as ``decode128``.
 

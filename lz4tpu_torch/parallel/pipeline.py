@@ -38,9 +38,10 @@ the first failing block in frame order.  An entry that gets no block gets no lau
   linked path, not the serial writer's (whose table carries over).
 * ``decompress_frame_parallel`` — block scan with the streaming reader's
   hostile-input checks, block checksums, ``decode128`` for frames of 64
-  KiB blocks, ``decode_big`` for frames of larger blocks
-  (``decompress_v4`` when ``lane_kernel=False``), stored blocks passed
-  through, and the content checksum.  A frame's compressed blocks are one
+  KiB blocks, ``decode_v4`` for frames of larger blocks (``decode_big``
+  with ``lane_kernel=True``; ``decode_v4`` for every frame with
+  ``lane_kernel=False``), stored blocks passed through, and the content
+  checksum.  A frame's compressed blocks are one
   launch unless their output rows and packed payloads pass
   ``kernels.pack.DECODE_BUDGET`` (1 GiB a device): then they are cut into
   groups of whole blocks in frame order, one launch each, so a frame of
@@ -82,7 +83,9 @@ is not ready) here, ``lz4t.launch`` around each launch's host side, and
 add ``lz4t.plan`` (the waves' pieces and chunks), ``lz4t.wave`` (one wave
 group's launch and the slide after it) and ``lz4t.push`` (a slide of the
 carry-over windows), and count ``linked_frames``, ``waves``,
-``wave_launches`` and ``window_pushes`` in ``stats()``.
+``wave_launches`` and ``window_pushes`` in ``stats()``.  The blocks of a
+frame of blocks over 64 KiB that the default route decodes on
+``decode_v4`` count in ``big_blocks_v4``.
 
 The streaming API takes the same one-launch paths for independent frames:
 ``CompressionSettings`` writes its batches through ``_scalar_blocks``, and
@@ -571,10 +574,10 @@ def decompress_frame_parallel(
 
     A preset dictionary is shared by every block as its prefix.  Frames of
     64 KiB blocks decode on ``decode128``, frames of larger blocks on
-    ``decode_big``.  ``lane_kernel=False`` sends both to ``decompress_v4``.
-    ``None`` (auto) and ``True`` are the same here, on one device or a
-    mesh: ``lz4tpu`` keeps multi-device meshes off its lane decoders only
-    for the speed of its CPU interpret mode.
+    ``decode_v4`` (each block spread over the card).  ``lane_kernel=True``
+    keeps larger blocks on the lane decoder ``decode_big`` (a block a
+    thread block), ``lane_kernel=False`` sends every frame to
+    ``decode_v4``; the same on one device or a mesh.
 
     ``mesh`` (in place of ``device``) cuts the compressed blocks into one
     contiguous range per entry, each decoded on its own card; the first
@@ -617,10 +620,11 @@ def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None
     groups in flight after it are dropped."""
     if not payloads:
         return []
-    if lane_kernel is False:
-        decoder = decode_v4
+    if block_maxsize <= MAX_BLOCK and lane_kernel is not False:
+        decoder = decode128
     else:
-        decoder = decode128 if block_maxsize <= MAX_BLOCK else decode_big
+        decoder = decode_big if lane_kernel else decode_v4
+    counted = lane_kernel is None and decoder is decode_v4  # big blocks, default route
     # every group gets the output capacity of one launch over all the
     # payloads, so that a hostile block stops where it would stop there
     width = round_up(max(map(len, payloads)), 16)
@@ -640,6 +644,8 @@ def _decode_payloads(payloads, block_maxsize, dictionary, devs, lane_kernel=None
         a, b, dev = work
         if first_bad is not None and a >= first_bad[0]:
             return None
+        if counted:
+            count(big_blocks_v4=b - a)
         return _launch_decode(decoder, payloads[a:b], block_maxsize, dictionary, out_capacity,
                               dev)
 

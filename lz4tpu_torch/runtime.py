@@ -96,7 +96,7 @@ ENTRIES = ("compress_frame", "decompress_frame", "decompress_frames")
 COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes", "staging_allocs",
             "staging_alloc_bytes", "staging_waits", "content_hashes_beside",
             "content_hash_waits", "linked_frames", "waves", "wave_launches",
-            "window_pushes")
+            "window_pushes", "big_blocks_v4")
 _LOCK = threading.Lock()
 _CALLS = dict.fromkeys(ENTRIES, 0)
 _COUNTS = dict.fromkeys(COUNTERS, 0)

@@ -201,8 +201,8 @@ def test_v3_error_kinds_match_jax_v3_interpret(bad):
 # ---------------------------------------------------------------------------
 
 
-def test_frame_of_big_blocks_decodes_on_decode_big(corpus_sample, monkeypatch):
-    from lz4tpu import CompressionSettings
+def decoder_spy(monkeypatch):
+    """The names of the decoders the frame path launches, in order."""
     from lz4tpu_torch.parallel import pipeline
 
     calls = []
@@ -214,14 +214,101 @@ def test_frame_of_big_blocks_decodes_on_decode_big(corpus_sample, monkeypatch):
             return _orig(*a, **k)
 
         monkeypatch.setattr(pipeline, name, spy)
+    return calls
+
+
+def dictionary_frame(corpus_sample, block_size=BIG):
+    """(frame, content, dictionary): 700,000 B of corpus behind a 70,000-byte
+    dictionary, in independent blocks of ``block_size`` (the JAX
+    package's native writer)."""
+    from lz4tpu import CompressionSettings
+
     data = corpus_sample(5200, 700_000)
     dic = corpus_sample(5201, 70_000)
-    frame = (CompressionSettings().engine("native").block_size(BIG).dictionary(3, dic)
+    frame = (CompressionSettings().engine("native").block_size(block_size).dictionary(3, dic)
              .compress_bytes(data))
-    assert lt.decompress_frame_parallel(frame, device="cpu", dictionary=dic) == data
+    return frame, data, dic
+
+
+def test_frame_of_big_blocks_decodes_on_decode_big(corpus_sample, monkeypatch):
+    """``lane_kernel=True`` keeps blocks over 64 KiB on the lane decoder,
+    ``decode_big``; ``lane_kernel=False`` takes ``decode_v4``."""
+    calls = decoder_spy(monkeypatch)
+    frame, data, dic = dictionary_frame(corpus_sample)
+    assert lt.decompress_frame_parallel(frame, device="cpu", dictionary=dic,
+                                        lane_kernel=True) == data
     assert lt.decompress_frame_parallel(frame, device="cpu", dictionary=dic,
                                         lane_kernel=False) == data
     assert calls == ["decode_big", "decode_v4"]
+
+
+@pytest.mark.parametrize("lane_kernel, decoder", [
+    (None, "decode_v4"),  # the default route: a group of few big blocks
+    (True, "decode_big"),
+    (False, "decode_v4"),
+])
+def test_frame_of_big_blocks_routes_by_lane_kernel(lane_kernel, decoder, corpus_sample,
+                                                   monkeypatch):
+    """One group of three 256 KiB blocks: its decoder, and ``big_blocks_v4``
+    counting its blocks only where the default route took ``decode_v4``."""
+    calls = decoder_spy(monkeypatch)
+    frame, data, dic = dictionary_frame(corpus_sample)
+    lt.reset_stats()
+    assert lt.decompress_frame_parallel(frame, device="cpu", dictionary=dic,
+                                        lane_kernel=lane_kernel) == data
+    assert calls == [decoder]
+    assert lt.stats()["big_blocks_v4"] == (3 if lane_kernel is None else 0)
+
+
+def one_byte_frame(n_blocks: int, bd: int) -> tuple[bytes, bytes]:
+    """(frame, content): an independent frame whose block i is the 2-byte
+    stream ``10 b_i`` (one literal), under the block maxsize of ``bd``."""
+    from lz4tpu_torch.spec.xxhash32 import xxh32
+
+    content = bytes((7 * i + 1) & 0xFF for i in range(n_blocks))
+    out = bytearray(b"\x04\x22\x4d\x18" + bytes([0x60, bd]))
+    out.append((xxh32(bytes([0x60, bd])) >> 8) & 0xFF)
+    for b in content:
+        out += (2).to_bytes(4, "little") + bytes([0x10, b])
+    return bytes(out + b"\0\0\0\0"), content
+
+
+def test_every_group_of_big_blocks_goes_to_decode_v4(monkeypatch):
+    """The default route takes every budget group of a frame of big blocks
+    to ``decode_v4``, whatever its rows, and ``lane_kernel=True`` every
+    one to ``decode_big``: 10 blocks under a 256 KiB maxsize in groups of
+    4, 4 and 2 on one device, and of 5 on each entry of a mesh of two."""
+    from lz4tpu_torch.kernels import pack
+    from lz4tpu_torch.parallel import pipeline
+
+    calls = decoder_spy(monkeypatch)
+    frame, content = one_byte_frame(10, 0x50)
+    row = pipeline.round_up(pipeline.round_up(BIG + 16, 16) + 16, 16)
+    monkeypatch.setattr(pack, "DECODE_BUDGET", 4 * row)
+    lt.reset_stats()
+    assert lt.decompress_frame_parallel(frame, device="cpu") == content
+    assert calls == ["decode_v4"] * 3
+    assert lt.stats()["big_blocks_v4"] == 10
+    calls.clear()
+    assert lt.decompress_frame_parallel(frame, device="cpu", lane_kernel=True) == content
+    assert calls == ["decode_big"] * 3
+    calls.clear()
+    monkeypatch.setattr(pack, "DECODE_BUDGET", 5 * row)
+    mesh = lt.make_mesh(devices=["cpu"] * 2)
+    assert lt.decompress_frame_parallel(frame, mesh=mesh) == content
+    assert calls == ["decode_v4"] * 2
+    assert lt.stats()["big_blocks_v4"] == 20
+
+
+def test_frame_of_64k_blocks_stays_on_decode128(corpus_sample, monkeypatch):
+    """The default route leaves frames of 64 KiB blocks on ``decode128``
+    and counts none of their blocks in ``big_blocks_v4``."""
+    calls = decoder_spy(monkeypatch)
+    frame, data, dic = dictionary_frame(corpus_sample, 1 << 16)
+    lt.reset_stats()
+    assert lt.decompress_frame_parallel(frame, device="cpu", dictionary=dic) == data
+    assert calls == ["decode128"]
+    assert lt.stats()["big_blocks_v4"] == 0
 
 
 def test_single_block_adapter_retry_goes_through_decode_big(monkeypatch):

@@ -192,7 +192,7 @@ def test_f1_frame_read_all(bd, engine, threads, monkeypatch, spy):
 
 @pytest.mark.parametrize("bd", [BD_4M, BD_64K])
 @pytest.mark.parametrize("mesh", [1, 3])
-@pytest.mark.parametrize("lane_kernel", [None, False])
+@pytest.mark.parametrize("lane_kernel", [None, False, True])
 def test_f1_frame_parallel(bd, mesh, lane_kernel, monkeypatch, spy):
     frame, content = f1_frame(200, bd)
     set_budget(monkeypatch, MAXSIZE[bd] + 32)
@@ -384,7 +384,7 @@ def test_errors_across_groups_and_ranges(case, bd, monkeypatch, spy):
     for engine, threads in READERS:
         assert read_all(frame, engine, threads, monkeypatch) == want, (engine, threads)
     for where in (dict(device="cpu"), dict(mesh=lt.make_mesh(devices=["cpu"] * 3))):
-        for lane_kernel in (None, False):
+        for lane_kernel in (None, False, True):  # every route: the same outcome
             got = outcome(lambda: lt.decompress_frame_parallel(frame, lane_kernel=lane_kernel,
                                                                **where))
             assert got == unwrapped(want), (where, lane_kernel)
