@@ -1210,7 +1210,7 @@ def kernel_modules():
 
 class PathMeter:
     """Launch counts, kernel time and least traffic of one driven path:
-    every kernel's count is set to 0 when the path begins and read when it
+    every kernel's count is taken when the path begins and again when it
     ends, and a kernel the path must run fails the script if it never ran."""
 
     def __init__(self, path: str, needed):
@@ -1220,6 +1220,7 @@ class PathMeter:
         self.traffic = {name: 0 for name in self.stats}  # bytes each kernel must move
         for k in self.stats.values():
             k.reset(timing=True)
+        self.start = launch_counts()
 
     def compressed(self, frame, n_in, row_extra=0):
         """Account one frame's compress launch: input rows (``row_extra``
@@ -1251,7 +1252,7 @@ class PathMeter:
         torch.cuda.synchronize()
         report = {}
         for name, k in self.stats.items():
-            report[name] = dict(launches=k.launches, main_ms=k.elapsed_ms(),
+            report[name] = dict(launches=k.launches - self.start[name], main_ms=k.elapsed_ms(),
                                 main_bound_ms=self.traffic[name] / HBM_BYTES_PER_S * 1e3)
             k.reset()
         for name in self.needed:
@@ -1797,7 +1798,7 @@ def phase_mesh(members, frames, summaries):
 
     import lz4tpu_torch as lt
     from lz4tpu_torch.kernels.compress128 import MAX_B
-    from lz4tpu_torch.parallel import pipeline
+    from lz4tpu_torch.parallel import blocks as block_work
     from lz4tpu_torch.parallel.mesh import shard_bounds
 
     total = sum(map(len, members.values()))
@@ -1882,14 +1883,14 @@ def phase_mesh(members, frames, summaries):
     part = "(7c) lane, 4 MiB independent blocks, mesh cuda:0 x4"
     meter = PathMeter(part, ("compress128", "decode_v4"))
     rows = []
-    real = pipeline.compress128
+    real = block_work.compress128
 
     def spy(src, base, *args, **kw):
         rows.append(int(base.shape[0]))
         return real(src, base, *args, **kw)
 
     t_comp = t_dec = 0.0
-    pipeline.compress128 = spy
+    block_work.compress128 = spy
     try:
         for name, data in members.items():
             del rows[:]
@@ -1910,7 +1911,7 @@ def phase_mesh(members, frames, summaries):
             meter.lane_compressed(frame, len(data))
             meter.decoded("decode_v4", frame, len(data))
     finally:
-        pipeline.compress128 = real
+        block_work.compress128 = real
     rates(part, total, sum(map(len, frames["5a"].values())), t_comp, t_dec)
     print(f"    phase 5a, same run: {summaries['5a']}")
     reports["7c"] = meter.finish()
@@ -2207,7 +2208,7 @@ def phase_f1(smi):
     from lz4tpu_torch.kernels.pack import DECODE_BUDGET, budget_groups
     from lz4tpu_torch.runtime import round_up
 
-    from lz4tpu_torch.parallel.pipeline import PIPELINE_DEPTH
+    from lz4tpu_torch.parallel.blocks import PIPELINE_DEPTH
 
     mib = 1 << 20
     print(f"  card {smi}; DECODE_BUDGET {DECODE_BUDGET / mib:,.0f} MiB a device; "
@@ -2399,7 +2400,7 @@ def trace_call(label, fn, path):
 
 def phase_transport(members, frames_3, paths, launches_9, scale: float):
     """Slice 12's transport on the card (``lz4tpu_torch/hostpack.py`` and the
-    pipelined units of ``parallel/pipeline.py``): (a) staging reuse: a
+    pipelined units of ``parallel/blocks.py``): (a) staging reuse: a
     fetched result held while later fetches and decodes take buffers keeps
     its bytes, and a buffer let go is taken again; (b) a frame decoded on
     one device and on three entries of ``cuda:0``, linked frames in waves
@@ -2416,8 +2417,9 @@ def phase_transport(members, frames_3, paths, launches_9, scale: float):
     import lz4tpu_torch as lt
     from lz4tpu_torch import hostpack
     from lz4tpu_torch.frame import compress as frame_compress
+    from lz4tpu_torch.frame.format import scan_frame
     from lz4tpu_torch.kernels import pack
-    from lz4tpu_torch.parallel import pipeline
+    from lz4tpu_torch.parallel import blocks as block_work
 
     # (a) staging reuse
     rng = np.random.default_rng(11)
@@ -2444,15 +2446,15 @@ def phase_transport(members, frames_3, paths, launches_9, scale: float):
         del other
     data = members[list(members)[0]][: 8 << 20]
     frame = lt.compress_frame_parallel(data, 65536, content_checksum=False)
-    payloads = [p for c, p, _ in pipeline._scan_frame(lt.LZ4FrameReader(frame))[0] if c]
-    decoded = pipeline._decode_payloads(payloads, 65536, b"", (torch.device("cuda"),))
+    payloads = [p for c, p, _ in scan_frame(lt.LZ4FrameReader(frame))[0] if c]
+    decoded = block_work.decode_payloads(payloads, 65536, b"", (torch.device("cuda"),))
     snapshot = b"".join(decoded)
     if b"".join(held) != want_a:
         fail("(11a) a held result changed while later calls took staging")
     del held
     again = hostpack.fetch(rows_b, lens_b).wait()
     reused = address(again) == first
-    pipeline._decode_payloads(payloads[::-1], 65536, b"", (torch.device("cuda"),))
+    block_work.decode_payloads(payloads[::-1], 65536, b"", (torch.device("cuda"),))
     if b"".join(decoded) != snapshot or b"".join(again) != want_b:
         fail("(11a) decoded rows changed while a later decode took staging")
     print(f"  (11a) staging reuse: held results unchanged over later fetches and decodes; a "
@@ -2490,7 +2492,7 @@ def phase_transport(members, frames_3, paths, launches_9, scale: float):
     finally:
         pack.DECODE_BUDGET = budget
         frame_compress.BATCH_BYTES = old_batch
-    print(f"  (11b) {len(data):,d} B at depth {pipeline.PIPELINE_DEPTH}: a frame of 64 KiB "
+    print(f"  (11b) {len(data):,d} B at depth {block_work.PIPELINE_DEPTH}: a frame of 64 KiB "
           f"blocks (on one device and on 3 entries of cuda:0), {len(segs)} linked frames in "
           "waves, the writer in 2 MiB batches; at the budget and at about 24 blocks a group: "
           "bytes equal in 2 passes each")

@@ -221,6 +221,7 @@ class Run:
         self.sync()
         if self.on_card:
             stats.reset(timing=True)
+        before = stats.launches
         t0 = time.perf_counter()
         for i, call in enumerate(calls):
             result = call()
@@ -232,7 +233,7 @@ class Run:
         if not self.on_card:
             return wall, wall
         ms = stats.elapsed_ms()
-        launches = stats.launches
+        launches = stats.launches - before
         stats.reset()
         if launches != len(calls):
             raise RuntimeError(f"{stats.name}: {launches} launches for {len(calls)} calls")

@@ -12,7 +12,7 @@ The block engine is one of three, or a callable with the spec's
 * ``"cuda"`` (the default) or a ``torch.device``: an independent-block
   frame is written in batches, the stream read ``BATCH_BYTES`` at a time
   (whole blocks), every block of a batch through one launch of the greedy
-  compressor (``parallel.pipeline._scalar_dispatch``), the next batch
+  compressor (``parallel.blocks.scalar_dispatch``), the next batch
   compressing while one is written, so ``compress(reader, writer)`` streams
   an input of any size;
 * ``"cpu"``: the same batches on the kernels' plain versions;
@@ -39,16 +39,16 @@ from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
 from .. import native
-from ..parallel.pipeline import _pipelined, _scalar_collect, _scalar_dispatch
+from ..parallel.blocks import pipelined, scalar_collect, scalar_dispatch
 from ..runtime import host_u8, resolve_device
 from ..spec.block import Incompressible
 from ..spec.hc import compress_block_hc as spec_compress_block_hc
 from ..spec.table import U32Table, prime_u32_table
-from ..spec.xxhash32 import xxh32
 from ..utils.hashing import make_hasher
 from ..utils.hashing import xxh32 as payload_xxh32
 from .errors import InvalidBlockSize
-from .header import INCOMPRESSIBLE, MAGIC, WINDOW_SIZE, BlockDescriptor, Flags
+from .format import block_word, frame_header
+from .header import WINDOW_SIZE, BlockDescriptor, Flags
 
 
 #: input bytes a batch of an independent-block frame holds at most (whole
@@ -204,16 +204,7 @@ class CompressionSettings:
         if bd is None:
             raise InvalidBlockSize(f"{self._block_size} is not a valid LZ4 block size")
 
-        header = bytearray()
-        header.extend(MAGIC.to_bytes(4, "little"))
-        header.append(flags.encode())
-        header.append(bd.byte)
-        if content_size is not None:
-            header.extend(int(content_size).to_bytes(8, "little"))
-        if self._dictionary_id is not None:
-            header.extend(int(self._dictionary_id).to_bytes(4, "little"))
-        header.append((xxh32(header[4:]) >> 8) & 0xFF)
-        writer.write(bytes(header))
+        writer.write(frame_header(flags, bd, content_size, self._dictionary_id))
 
         if flags.independent_blocks and dev is not None:
             self._write_batches(reader, writer, flags, content_hasher, dev, hc)
@@ -249,19 +240,19 @@ class CompressionSettings:
                 yield 0, 0, batch
 
         def dispatch(batch):
-            return _scalar_dispatch(host_u8(batch), bs, self._dictionary, self._acceleration,
-                                    dev)
+            return scalar_dispatch(host_u8(batch), bs, self._dictionary, self._acceleration,
+                                   dev)
 
         def write(batch, launched):
             lens, handle = launched
             mv = memoryview(batch)
-            for i, greedy in enumerate(_scalar_collect(handle, lens)):
+            for i, greedy in enumerate(scalar_collect(handle, lens)):
                 raw = mv[i * bs : i * bs + int(lens[i])]
                 data = initializer + raw if initializer else raw
                 self._write_block(writer, data, len(initializer), greedy, hc, flags, dev.type)
 
         # two batches at most in flight: one written while the next compresses
-        _pipelined(batches(), dispatch, write, depth=2)
+        pipelined(batches(), dispatch, write, depth=2)
 
     def _template(self):
         """Dictionary priming: the template table and the block initializer."""
@@ -376,12 +367,8 @@ class CompressionSettings:
 
     def _emit(self, writer, data, cursor, compressed, flags, hash_device) -> None:
         """Write one block: its payload, or ``data[cursor:]`` stored raw."""
-        if compressed is not None:
-            writer.write(len(compressed).to_bytes(4, "little"))
-            payload = compressed
-        else:
-            writer.write(((len(data) - cursor) | INCOMPRESSIBLE).to_bytes(4, "little"))
-            payload = bytes(data[cursor:])
+        payload = compressed if compressed is not None else bytes(data[cursor:])
+        writer.write(block_word(len(payload), compressed is None))
         writer.write(payload)
         if flags.block_checksums:
             writer.write(payload_xxh32(payload, device=hash_device).to_bytes(4, "little"))

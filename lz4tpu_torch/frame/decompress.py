@@ -39,7 +39,7 @@ import numpy as np
 
 from .. import native
 from ..kernels.pack import budget_groups
-from ..parallel.pipeline import _decode_payloads, _join_blocks, _scan_frame
+from ..parallel.blocks import content_pieces, decode_payloads, join_content
 from ..runtime import resolve_device
 from ..spec.block import DecodeError
 from ..spec.xxhash32 import xxh32
@@ -54,7 +54,8 @@ from .errors import (
     InputTruncated,
     WrongMagic,
 )
-from .header import INCOMPRESSIBLE, MAGIC, WINDOW_SIZE, BlockDescriptor, Flags
+from .format import read_block, read_checksum, read_exact, scan_frame
+from .header import MAGIC, WINDOW_SIZE, BlockDescriptor, Flags
 
 
 def _resolve_engine(name):
@@ -103,7 +104,7 @@ def _decode_native(blocks, block_maxsize: int, dictionary: bytes, nthreads: int)
     decoded by the native engine on one of ``nthreads`` threads straight
     into its slot of ``block_maxsize`` bytes, in groups of blocks whose
     slots fit ``DECODE_BUDGET``; raises the first failing block's error in
-    frame order, as ``_decode_payloads`` does (the decoder's
+    frame order, as ``parallel.blocks.decode_payloads`` does (the decoder's
     ``DecodeError``, or ``BlockSizeOverflow`` for a block that decoded past
     ``block_maxsize``)."""
     bs = block_maxsize
@@ -143,20 +144,6 @@ def _decode_native(blocks, block_maxsize: int, dictionary: bytes, nthreads: int)
     return parts[0] if len(parts) == 1 else b"".join(parts)
 
 
-def _read_exact(reader, n: int) -> bytes:
-    # read(n) may legally return fewer bytes before EOF, so loop like the
-    # reference's read_exact
-    parts = []
-    got = 0
-    while got < n:
-        chunk = reader.read(n - got)
-        if not chunk:
-            raise InputTruncated(f"needed {n} bytes, got {got}")
-        parts.append(chunk)
-        got += len(chunk)
-    return parts[0] if len(parts) == 1 else b"".join(parts)
-
-
 class LZ4FrameReader:
     """Reads the blocks inside one LZ4 frame, one ``decode_block`` at a time.
 
@@ -169,30 +156,30 @@ class LZ4FrameReader:
         self._decompress_block, self._device, self._hash_device = _resolve_engine(engine)
         self._engine = engine
 
-        magic = int.from_bytes(_read_exact(reader, 4), "little")
+        magic = int.from_bytes(read_exact(reader, 4), "little")
         if magic != MAGIC:
             raise WrongMagic(f"wrong magic number in file header: {magic:08x}")
 
-        flags_byte = _read_exact(reader, 1)[0]
+        flags_byte = read_exact(reader, 1)[0]
         self.flags = Flags.parse(flags_byte)
-        bd_byte = _read_exact(reader, 1)[0]
+        bd_byte = read_exact(reader, 1)[0]
         bd = BlockDescriptor.parse(bd_byte)
 
         hashed = bytearray([flags_byte, bd_byte])
 
         self.content_size = None
         if self.flags.content_size:
-            raw = _read_exact(reader, 8)
+            raw = read_exact(reader, 8)
             self.content_size = int.from_bytes(raw, "little")
             hashed.extend(raw)
 
         self.dictionary_id = None
         if self.flags.dictionary_id:
-            raw = _read_exact(reader, 4)
+            raw = read_exact(reader, 4)
             self.dictionary_id = int.from_bytes(raw, "little")
             hashed.extend(raw)
 
-        checksum_desired = _read_exact(reader, 1)[0]
+        checksum_desired = read_exact(reader, 1)[0]
         checksum_actual = (xxh32(hashed) >> 8) & 0xFF
         if checksum_desired != checksum_actual:
             raise HeaderChecksumFail("the header checksum was invalid")
@@ -220,27 +207,17 @@ class LZ4FrameReader:
             return None
 
         self._blocks_read += 1
-        block_length = int.from_bytes(_read_exact(self.reader, 4), "little")
-        if block_length == 0:
-            if self._content_hasher is not None:
-                checksum = int.from_bytes(_read_exact(self.reader, 4), "little")
-                if self._content_hasher.digest() != checksum:
-                    raise FrameChecksumFail("the frame checksum was invalid")
+        block = read_block(self.reader, self.flags, self.block_maxsize)
+        if block is None:
+            checksum = read_checksum(self.reader, self.flags.content_checksum)
+            if checksum is not None and self._content_hasher.digest() != checksum:
+                raise FrameChecksumFail("the frame checksum was invalid")
             self._finished = True
             return None
 
-        is_compressed = (block_length & INCOMPRESSIBLE) == 0
-        block_length &= ~INCOMPRESSIBLE & 0xFFFFFFFF
-
-        if block_length > self.block_maxsize:
-            raise BlockSizeOverflow("a block is larger than the frame's block maxsize")
-
-        buf = _read_exact(self.reader, block_length)
-
-        if self.flags.block_checksums:
-            checksum = int.from_bytes(_read_exact(self.reader, 4), "little")
-            if payload_xxh32(buf, device=self._hash_device) != checksum:
-                raise BlockChecksumFail("a block checksum was invalid")
+        is_compressed, buf, checksum = block
+        if checksum is not None and payload_xxh32(buf, device=self._hash_device) != checksum:
+            raise BlockChecksumFail("a block checksum was invalid")
 
         # prefix: carry-over window (seeded with the dictionary on first
         # use) in linked mode, else the dictionary directly
@@ -287,11 +264,11 @@ class LZ4FrameReader:
         block."""
         if self._carryover_window is None and not self._blocks_read and not self._finished:
             if self._device is not None:
-                return self._read_all_batched(dictionary, lambda blocks: _join_blocks(
-                    blocks, _decode_payloads([p for c, p, _ in blocks if c],
-                                             self.block_maxsize,
-                                             bytes(dictionary)[-WINDOW_SIZE:],
-                                             (self._device,))))
+                return self._read_all_batched(dictionary, lambda blocks: join_content(
+                    content_pieces(blocks, decode_payloads(
+                        [p for c, p, _ in blocks if c], self.block_maxsize,
+                        bytes(dictionary)[-WINDOW_SIZE:], (self._device,))),
+                    False, self._device)[0])
             if self._engine == "native" and host_threads() > 1:
                 return self._read_all_batched(dictionary, lambda blocks: _decode_native(
                     blocks, self.block_maxsize, bytes(dictionary), host_threads()))
@@ -313,7 +290,7 @@ class LZ4FrameReader:
         self._finished = True
         blocks = []
         try:
-            _, expected = _scan_frame(self, blocks=blocks)
+            _, expected = scan_frame(self, blocks=blocks)
             stop = None
         except (BlockSizeOverflow, InputTruncated) as e:
             stop = e

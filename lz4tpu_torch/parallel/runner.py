@@ -26,8 +26,8 @@ import os
 import pathlib
 import tempfile
 
-from ..frame.decompress import LZ4FrameReader, _read_exact
-from ..frame.header import INCOMPRESSIBLE
+from ..frame.decompress import LZ4FrameReader
+from ..frame.format import read_block, read_checksum
 from .mesh import make_mesh
 from .pipeline import compress_frame_parallel, decompress_frame_parallel
 
@@ -117,17 +117,12 @@ def run_sharded_compress(
 def _frame_end(stream, dev) -> int:
     """Where the frame at ``stream``'s position ends, found by walking its
     block chain; every read is length-checked, so a truncated archive
-    raises ``InputTruncated``."""
-    reader = LZ4FrameReader(stream, engine=dev)  # parses the header
-    while True:
-        length = int.from_bytes(_read_exact(stream, 4), "little")
-        if length == 0:
-            if reader.flags.content_checksum:
-                _read_exact(stream, 4)
-            return stream.tell()
-        _read_exact(stream, length & ~INCOMPRESSIBLE & 0xFFFFFFFF)
-        if reader.flags.block_checksums:
-            _read_exact(stream, 4)
+    raises ``InputTruncated``.  Block sizes are left to the decode."""
+    flags = LZ4FrameReader(stream, engine=dev).flags  # parses the header
+    while read_block(stream, flags, 0xFFFFFFFF) is not None:  # no maxsize check
+        pass
+    read_checksum(stream, flags.content_checksum)
+    return stream.tell()
 
 
 def run_sharded_decompress(input_path, output_path, mesh=None) -> dict:

@@ -37,27 +37,36 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_LOCK = threading.Lock()
+#: every ``KernelStats``, in the order they were built
+_KERNELS: list = []
+#: each kernel's ``launches`` at the last ``reset_stats()``
+_LAUNCHES_AT_RESET: dict = {}
+
+
 class KernelStats:
     """Launch count (and optional CUDA-event timing) of one kernel.
 
     ``launches`` goes up by one at each launch of the CUDA kernel and
-    nowhere else.  With ``reset(timing=True)`` each launch is bracketed by
-    CUDA events; ``elapsed_ms()`` synchronises and sums them.
+    nowhere else, and is never zeroed: a count over a span of work is a
+    difference.  With ``reset(timing=True)`` each launch is bracketed by
+    CUDA events; ``elapsed_ms()`` synchronises and sums them.  Each one
+    registers itself for ``stats()`` when it is built.
     """
 
     def __init__(self, name: str):
         self.name = name
         self.launches = 0
-        self.total = 0  # launches since ``reset_stats()``; ``reset`` leaves it
         self._events = None
+        with _LOCK:
+            _KERNELS.append(self)
 
     def reset(self, timing: bool = False) -> None:
-        self.launches = 0
+        """Drop the timed launches, and time the next ones with ``timing``."""
         self._events = [] if timing else None
 
     def begin(self):
         self.launches += 1
-        self.total += 1
         if self._events is None:
             return None
         start = torch.cuda.Event(enable_timing=True)
@@ -97,7 +106,6 @@ COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes", "staging_allocs
             "staging_alloc_bytes", "staging_waits", "content_hashes_beside",
             "content_hash_waits", "linked_frames", "waves", "wave_launches",
             "window_pushes", "big_blocks_v4")
-_LOCK = threading.Lock()
 _CALLS = dict.fromkeys(ENTRIES, 0)
 _COUNTS = dict.fromkeys(COUNTERS, 0)
 
@@ -142,14 +150,6 @@ def entry(name: str):
     return wrap
 
 
-def _kernels() -> list[KernelStats]:
-    from .kernels import (compress, compress128, decode128, decodebig, decompress_v3,
-                          decompress_v4, window)
-
-    return [m.KERNEL for m in (compress, compress128, decode128, decodebig, decompress_v4,
-                               decompress_v3, window)]
-
-
 def stats() -> dict:
     """A snapshot of the counters since the process started or
     ``reset_stats()``: ``calls`` by entry point, ``launches`` by kernel
@@ -159,7 +159,8 @@ def stats() -> dict:
     which ``reset_stats()`` leaves alone."""
     with _LOCK:
         out = {"calls": dict(_CALLS), **_COUNTS}
-    out["launches"] = {k.name: k.total for k in _kernels()}
+        out["launches"] = {k.name: k.launches - _LAUNCHES_AT_RESET.get(k.name, 0)
+                           for k in _KERNELS}
     out["device_bytes_peak"] = max(
         (torch.cuda.max_memory_allocated(i) for i in range(torch.cuda.device_count())),
         default=0) if torch.cuda.is_initialized() else 0
@@ -167,15 +168,14 @@ def stats() -> dict:
 
 
 def reset_stats() -> None:
-    """Zero every counter of ``stats()``.  Leaves ``KernelStats.launches``
-    and its timing, and torch's own memory statistics (``device_bytes_peak``),
-    as they are."""
+    """Zero every counter of ``stats()``: its launches count from each
+    kernel's ``KernelStats.launches`` now.  Leaves ``KernelStats`` and
+    torch's own memory statistics (``device_bytes_peak``) as they are."""
     with _LOCK:
         for d in (_CALLS, _COUNTS):
             for k in d:
                 d[k] = 0
-    for k in _kernels():
-        k.total = 0
+        _LAUNCHES_AT_RESET.update((k.name, k.launches) for k in _KERNELS)
 
 
 def stream_handle() -> int:

@@ -32,7 +32,7 @@ from torch.autograd.profiler import record_function  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from lz4tpu_torch import runtime  # noqa: E402
 from lz4tpu_torch.frame.errors import CodecError  # noqa: E402
-from lz4tpu_torch.parallel import pipeline  # noqa: E402
+from lz4tpu_torch.parallel import waves  # noqa: E402
 
 from conftest import make_corpus_sample  # noqa: E402
 from lz4bench import plain_lz4f, reference, spans, trace  # noqa: E402
@@ -222,7 +222,7 @@ def test_push_is_one_span_a_slide_not_a_block():
     new = torch.zeros(3, BLOCK, dtype=torch.uint8)
     new_len = torch.zeros(3, dtype=torch.int32)
     dest = torch.tensor([2, -1, 0, -1, 1], dtype=torch.int32)
-    pipeline._push_windows(windows, wlen, data, torch.full((5,), 100, dtype=torch.int32), dest,
+    waves._push_windows(windows, wlen, data, torch.full((5,), 100, dtype=torch.int32), dest,
                            new, new_len)
     assert lt.stats()["window_pushes"] == 1
     assert new_len.tolist() == [103] * 3

@@ -203,17 +203,17 @@ def test_v3_error_kinds_match_jax_v3_interpret(bad):
 
 def decoder_spy(monkeypatch):
     """The names of the decoders the frame path launches, in order."""
-    from lz4tpu_torch.parallel import pipeline
+    from lz4tpu_torch.parallel import blocks
 
     calls = []
     for name in ("decode128", "decode_big", "decode_v4"):
-        orig = getattr(pipeline, name)
+        orig = getattr(blocks, name)
 
         def spy(*a, _orig=orig, _name=name, **k):
             calls.append(_name)
             return _orig(*a, **k)
 
-        monkeypatch.setattr(pipeline, name, spy)
+        monkeypatch.setattr(blocks, name, spy)
     return calls
 
 
@@ -279,11 +279,11 @@ def test_every_group_of_big_blocks_goes_to_decode_v4(monkeypatch):
     one to ``decode_big``: 10 blocks under a 256 KiB maxsize in groups of
     4, 4 and 2 on one device, and of 5 on each entry of a mesh of two."""
     from lz4tpu_torch.kernels import pack
-    from lz4tpu_torch.parallel import pipeline
+    from lz4tpu_torch.runtime import round_up
 
     calls = decoder_spy(monkeypatch)
     frame, content = one_byte_frame(10, 0x50)
-    row = pipeline.round_up(pipeline.round_up(BIG + 16, 16) + 16, 16)
+    row = round_up(round_up(BIG + 16, 16) + 16, 16)
     monkeypatch.setattr(pack, "DECODE_BUDGET", 4 * row)
     lt.reset_stats()
     assert lt.decompress_frame_parallel(frame, device="cpu") == content

@@ -38,7 +38,8 @@ from lz4tpu_torch.kernels import decodebig as dbig  # noqa: E402
 from lz4tpu_torch.kernels import decompress_v3 as dv3  # noqa: E402
 from lz4tpu_torch.kernels import decompress_v4 as dv4  # noqa: E402
 from lz4tpu_torch.kernels import pack  # noqa: E402
-from lz4tpu_torch.parallel import pipeline  # noqa: E402
+from lz4tpu_torch.parallel import blocks, waves  # noqa: E402
+from lz4tpu_torch.runtime import round_up  # noqa: E402
 from lz4tpu_torch.spec.block import DecodeError  # noqa: E402
 from lz4tpu_torch.spec.xxhash32 import xxh32  # noqa: E402
 
@@ -93,8 +94,8 @@ class Spy:
     def __init__(self, monkeypatch):
         self.launches = []
         self.slots = []
-        for mod, name in ((pipeline, "decode128"), (pipeline, "decode_big"),
-                          (pipeline, "decode_v4"), (d128, "decode128"), (dbig, "decode_big"),
+        for mod, name in ((blocks, "decode128"), (blocks, "decode_big"),
+                          (blocks, "decode_v4"), (d128, "decode128"), (dbig, "decode_big"),
                           (dv4, "decode_v4"), (dv3, "decode_v3")):
             monkeypatch.setattr(mod, name, self._wrap(getattr(mod, name)))
         slots = port_decompress._output_slots
@@ -217,8 +218,8 @@ def test_f1_frames_parallel(mesh, monkeypatch, spy):
 
 
 def wave_row(maxsize: int, width: int) -> int:
-    return (pipeline.round_up(maxsize + width, 16) + width + pipeline.WINDOW_SIZE
-            + pipeline.PUSH_BYTES)
+    return (round_up(maxsize + width, 16) + width + waves.WINDOW_SIZE
+            + waves.PUSH_BYTES)
 
 
 def test_linked_frames_in_one_wave_span_groups(monkeypatch, spy):

@@ -1,5 +1,5 @@
 """The port's transport (``lz4tpu_torch/hostpack.py``) and the pipelined
-units of ``parallel/pipeline.py``, on the CPU at small sizes.
+units of ``parallel/blocks.py``, on the CPU at small sizes.
 
 * Upload and fetch give what the row-by-row packing gave before them
   (``pack_rows`` / ``pack_prefixes`` / ``fetch_rows``, kept here as the
@@ -31,7 +31,8 @@ from lz4tpu.frame.decompress import LZ4FrameReader as JaxFrameReader  # noqa: E4
 from lz4tpu_torch import hostpack  # noqa: E402
 from lz4tpu_torch.frame import compress as port_compress  # noqa: E402
 from lz4tpu_torch.kernels import pack  # noqa: E402
-from lz4tpu_torch.parallel import pipeline  # noqa: E402
+from lz4tpu_torch.frame.format import scan_frame  # noqa: E402
+from lz4tpu_torch.parallel import blocks  # noqa: E402
 from lz4tpu_torch.runtime import round_up  # noqa: E402
 from lz4tpu_torch.spec.block import WINDOW_SIZE, DecodeError  # noqa: E402
 
@@ -200,9 +201,9 @@ def test_two_decodes_in_a_row_leave_the_first_result_unchanged():
     for data in (data_a, data_b):
         frame = lt.compress_frame_parallel(data, 65536, device="cpu")
         reader = lt.LZ4FrameReader(frame, engine="cpu")
-        payloads.append([p for c, p, _ in pipeline._scan_frame(reader)[0] if c])
-    rows_a = pipeline._decode_payloads(payloads[0], 65536, b"", devs)
-    rows_b = pipeline._decode_payloads(payloads[1], 65536, b"", devs)
+        payloads.append([p for c, p, _ in scan_frame(reader)[0] if c])
+    rows_a = blocks.decode_payloads(payloads[0], 65536, b"", devs)
+    rows_b = blocks.decode_payloads(payloads[1], 65536, b"", devs)
     assert b"".join(rows_a) == data_a and b"".join(rows_b) == data_b
 
 
@@ -222,7 +223,7 @@ def seq(lit: bytes = b"", offset: int = 0, ml: int = 0) -> bytes:
 
 
 BAD_OFFSET = seq(b"abc", 9, 40)  # invalid_deduplication_offset
-DEPTH = pipeline.PIPELINE_DEPTH
+DEPTH = blocks.PIPELINE_DEPTH
 
 
 def outcome(fn):
@@ -283,7 +284,7 @@ GROUP_BLOCKS = 4  # the shrunk budget: 10 groups of 4 blocks on one device
 def shrink(monkeypatch, depth):
     width = 3072  # the payloads' row, rounded: every payload is under it
     monkeypatch.setattr(pack, "DECODE_BUDGET", GROUP_BLOCKS * (65536 + 2 * width + 32))
-    monkeypatch.setattr(pipeline, "PIPELINE_DEPTH", depth)
+    monkeypatch.setattr(blocks, "PIPELINE_DEPTH", depth)
 
 
 @pytest.fixture(scope="module")
@@ -327,7 +328,7 @@ def test_linked_waves_in_flight_give_the_serial_readers_bytes(where, depth, monk
         f[-40] ^= 0x55  # in its last block
         frames[bad] = bytes(f)
     want = [jax_serial(f) for f in frames]
-    monkeypatch.setattr(pipeline, "PIPELINE_DEPTH", depth)
+    monkeypatch.setattr(blocks, "PIPELINE_DEPTH", depth)
     got = outcome(lambda: lt.decompress_frames_parallel(frames, device="cpu"))
     errors = [w for w in want if isinstance(w, tuple)]
     assert got == (unwrapped(errors[0]) if errors else datas)
@@ -351,7 +352,7 @@ def test_scalar_independent_frames_equal_the_jax_writer(depth, mesh, compress_da
     dic = make_corpus_sample(64, 20_000)
     want = lz4tpu.CompressionSettings().engine("native").block_size(64 << 10) \
         .block_checksums(True).dictionary(5, dic).compress_bytes(compress_data)
-    monkeypatch.setattr(pipeline, "PIPELINE_DEPTH", depth)
+    monkeypatch.setattr(blocks, "PIPELINE_DEPTH", depth)
     on = dict(device="cpu") if mesh == 1 else dict(mesh=lt.make_mesh(devices=["cpu"] * mesh))
     got = lt.compress_frame_parallel(compress_data, 65536, block_checksums=True,
                                      dictionary=dic, dictionary_id=5, **on)
@@ -363,7 +364,7 @@ def test_batched_writer_in_many_batches_equals_the_jax_writer(depth, compress_da
                                                               monkeypatch):
     want = lz4tpu.CompressionSettings().engine("native").block_size(64 << 10) \
         .compress_bytes(compress_data)
-    monkeypatch.setattr(pipeline, "PIPELINE_DEPTH", depth)
+    monkeypatch.setattr(blocks, "PIPELINE_DEPTH", depth)
     monkeypatch.setattr(port_compress, "BATCH_BYTES", 1 << 16)  # a batch a block: 5 batches
     got = lt.CompressionSettings().engine("cpu").block_size(64 << 10) \
         .compress_bytes(compress_data)
@@ -375,22 +376,22 @@ def test_batched_writer_in_many_batches_equals_the_jax_writer(depth, compress_da
 def test_frames_equal_at_every_depth_and_mesh(lane, linked, compress_data, monkeypatch):
     data = compress_data[: 100_000 if lane else 200_000]
     kw = dict(block_size=65536, parallel_linked=linked, lane_kernel=lane)
-    monkeypatch.setattr(pipeline, "PIPELINE_DEPTH", 1)
+    monkeypatch.setattr(blocks, "PIPELINE_DEPTH", 1)
     base = lt.compress_frame_parallel(data, device="cpu", **kw)
     assert JaxFrameReader(base, engine="spec").read_all() == data
     for depth, mesh in ((DEPTH, 1), (DEPTH, 2), (DEPTH, 3), (1, 3)):
-        monkeypatch.setattr(pipeline, "PIPELINE_DEPTH", depth)
+        monkeypatch.setattr(blocks, "PIPELINE_DEPTH", depth)
         got = lt.compress_frame_parallel(data, mesh=lt.make_mesh(devices=["cpu"] * mesh),
                                          **kw)
         assert got == base, (depth, mesh)
 
 
 def test_in_flight_units_stay_under_the_budget_of_their_entry(monkeypatch):
-    """``_pipelined`` keeps ``PIPELINE_DEPTH`` units in flight, and on one
+    """``pipelined`` keeps ``PIPELINE_DEPTH`` units in flight, and on one
     mesh entry no more cost than ``DECODE_BUDGET`` (a unit over it alone
     runs alone); units are collected in order."""
     monkeypatch.setattr(pack, "DECODE_BUDGET", 100)
-    monkeypatch.setattr(pipeline, "PIPELINE_DEPTH", 3)
+    monkeypatch.setattr(blocks, "PIPELINE_DEPTH", 3)
     flight, seen, order = [], [], []
 
     def dispatch(work):
@@ -405,7 +406,7 @@ def test_in_flight_units_stay_under_the_budget_of_their_entry(monkeypatch):
 
     units = [(0, 40, "a"), (1, 40, "b"), (0, 40, "c"), (0, 30, "d"), (1, 500, "e"),
              (1, 10, "f"), (0, 0, "g")]
-    pipeline._pipelined(units, dispatch, collect)
+    blocks.pipelined(units, dispatch, collect)
     assert order == list("abcdefg")
     cost = {w: (e, c) for e, c, w in units}
     for now in seen:

@@ -2,6 +2,7 @@
 package, and its entry points never run on the CPU unless asked to."""
 
 import ast
+import graphlib
 import os
 import pathlib
 import shutil
@@ -19,14 +20,31 @@ def _sources():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-def _imported_modules(path):
+def _imported_modules(path, package=None):
+    """The modules ``path`` imports anywhere in its code.  With ``package``
+    (the module's own package) relative imports are resolved too, and each
+    name of ``from X import a`` also counts as ``X.a`` (a submodule, where
+    there is one)."""
     tree = ast.parse(path.read_text(), filename=str(path))
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             for alias in node.names:
                 yield alias.name
-        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
-            yield node.module
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0 and node.module:
+                stem = node.module
+            elif node.level and package is not None:
+                parts = package.split(".")[: package.count(".") + 2 - node.level]
+                stem = ".".join(parts + [node.module] if node.module else parts)
+            else:
+                continue
+            yield stem
+            if package is not None:
+                yield from (f"{stem}.{alias.name}" for alias in node.names)
+
+
+def _module_name(path):
+    return ".".join(path.relative_to(ROOT).with_suffix("").parts)
 
 
 def _forbidden(name):
@@ -73,6 +91,28 @@ def test_native_engine_loads_without_jax_or_lz4tpu():
 def test_no_jax_or_lz4tpu_import_in_source(path):
     bad = [m for m in _imported_modules(path) if _forbidden(m)]
     assert not bad, f"{path} imports {bad}"
+
+
+def test_port_imports_are_one_way():
+    """The port's modules (package ``__init__`` files left out) import each
+    other without a cycle, imports inside functions included and edges to a
+    package's ``__init__`` left out; nothing under ``frame/`` imports
+    ``parallel.pipeline``, and no private name crosses between ``frame/``
+    and ``parallel/``."""
+    paths = {_module_name(p): p for p in PORT.rglob("*.py") if p.name != "__init__.py"}
+    imports = {m: set(_imported_modules(p, m.rpartition(".")[0])) for m, p in paths.items()}
+    graph = {m: {t for t in targets if t in paths and t != m} for m, targets in imports.items()}
+    try:
+        tuple(graphlib.TopologicalSorter(graph).static_order())
+    except graphlib.CycleError as e:
+        pytest.fail(f"import cycle: {e.args[1]}")
+    frame, parallel = "lz4tpu_torch.frame.", "lz4tpu_torch.parallel."
+    assert not [m for m in graph if m.startswith(frame)
+                and "lz4tpu_torch.parallel.pipeline" in graph[m]]
+    crossing = [(m, t) for m, targets in imports.items() for t in targets
+                for a, b in ((frame, parallel), (parallel, frame))
+                if m.startswith(a) and t.startswith(b) and t.rpartition(".")[2].startswith("_")]
+    assert not crossing, crossing
 
 
 def _entry_points(tmp_path):

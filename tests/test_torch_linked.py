@@ -17,7 +17,8 @@ from lz4tpu.parallel.mesh import make_mesh
 from lz4tpu.parallel.pipeline import _compress_sharded, _pad_blocks
 from lz4tpu.parallel.pipeline import decompress_frames_parallel as jax_frames_parallel
 from lz4tpu_torch.frame.errors import BlockSizeOverflow, FrameChecksumFail
-from lz4tpu_torch.parallel import pipeline
+from lz4tpu_torch.frame.format import scan_frame
+from lz4tpu_torch.parallel import blocks
 
 from conftest import make_corpus_sample
 
@@ -91,7 +92,7 @@ def test_wave_decode_matches_jax_frames_parallel(name, waves):
 def test_stored_block_case_holds_a_stored_block(waves):
     frame = waves[0]["stored_block"][0][0]
     reader = lt.LZ4FrameReader(frame, engine="cpu")
-    kinds = [compressed for compressed, _, _ in pipeline._scan_frame(reader)[0]]
+    kinds = [compressed for compressed, _, _ in scan_frame(reader)[0]]
     assert kinds == [False, True]
     assert lt.decompress_frame(frame, engine="cpu") == waves[0]["stored_block"][1][0]
 
@@ -117,13 +118,13 @@ def test_corrupted_content_checksum_raises_as_in_jax(corpus_sample):
 def test_waves_route_by_block_size_and_skip_the_serial_reader(corpus_sample, monkeypatch):
     calls = []
     for name in ("decode128", "decode_big", "decode_v4"):
-        orig = getattr(pipeline, name)
+        orig = getattr(blocks, name)
 
         def spy(comp, *a, _orig=orig, _name=name, **k):
             calls.append((_name, comp.shape[0]))
             return _orig(comp, *a, **k)
 
-        monkeypatch.setattr(pipeline, name, spy)
+        monkeypatch.setattr(blocks, name, spy)
 
     def no_serial(*a, **k):
         raise AssertionError("a linked frame reached the serial reader")
@@ -182,7 +183,7 @@ def jax_linked_payloads(data, dictionary):
 
 def frame_payloads(frame):
     reader = lt.LZ4FrameReader(frame, engine="cpu")
-    return reader, [p if c else None for c, p, _ in pipeline._scan_frame(reader)[0]]
+    return reader, [p if c else None for c, p, _ in scan_frame(reader)[0]]
 
 
 @pytest.mark.parametrize("dict_len", [0, 65536, 10_000], ids=["no_dict", "dict_64k", "dict_10000"])

@@ -20,7 +20,7 @@ from lz4tpu.parallel.mesh import make_mesh as jax_make_mesh
 from lz4tpu.parallel.pipeline import _compress_sharded, _pad_blocks
 from lz4tpu.parallel.pipeline import compress_frame_parallel as jax_compress_frame_parallel
 from lz4tpu.parallel.pipeline import decompress_frame_parallel as jax_decompress_frame_parallel
-from lz4tpu_torch.parallel import pipeline
+from lz4tpu_torch.parallel import blocks
 from lz4tpu_torch.parallel.mesh import BLOCK_AXIS, Mesh, shard_bounds
 
 KS = (1, 2, 3, 4, 8)
@@ -144,14 +144,14 @@ def test_frames_equal_at_every_mesh_size(mode, dictionary):
 
 
 def _spy(monkeypatch, name, calls):
-    real = getattr(pipeline, name)
+    real = getattr(blocks, name)
 
     def spy(rows, *a, **k):
         calls.append((rows.device.type, int(a[0].shape[0]) if name == "compress128"
                       else int(rows.shape[0])))
         return real(rows, *a, **k)
 
-    monkeypatch.setattr(pipeline, name, spy)
+    monkeypatch.setattr(blocks, name, spy)
 
 
 @pytest.mark.parametrize("k", KS)

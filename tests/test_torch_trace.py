@@ -27,9 +27,9 @@ from lz4tpu.parallel.mesh import make_mesh  # noqa: E402
 from lz4tpu.parallel.pipeline import decompress_frames_parallel as jax_frames_parallel  # noqa: E402
 from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from lz4tpu_torch import runtime  # noqa: E402
+from lz4tpu_torch.frame.format import frame_header, scan_frame  # noqa: E402
 from lz4tpu_torch.frame.header import BlockDescriptor, Flags  # noqa: E402
 from lz4tpu_torch.kernels import compress, pack  # noqa: E402
-from lz4tpu_torch.parallel import pipeline  # noqa: E402
 from lz4tpu_torch.spec.xxhash32 import xxh32  # noqa: E402
 
 from conftest import make_corpus_sample  # noqa: E402
@@ -117,7 +117,7 @@ def small_blocks_frame(n_blocks: int) -> tuple[bytes, bytes]:
     content = bytes((7 * i) & 0xFF for i in range(10 * n_blocks))
     flags = Flags(independent_blocks=True, block_checksums=False, content_checksum=True,
                   content_size=False, dictionary_id=False)
-    parts = [pipeline._frame_header(flags, BlockDescriptor.for_block_maxsize(BLOCK), None, None)]
+    parts = [frame_header(flags, BlockDescriptor.for_block_maxsize(BLOCK), None, None)]
     for i in range(n_blocks):
         block = bytes([10 << 4]) + content[10 * i : 10 * i + 10]  # one token, literals only
         parts += [len(block).to_bytes(4, "little"), block]
@@ -141,7 +141,7 @@ def test_spans_are_per_phase_not_per_block(tmp_path, monkeypatch):
     # the budget cut 1,000 blocks into 4 units: 3 more units' spans at most
     per_unit = sum(n not in ("lz4t.decompress_frame", "lz4t.scan", "lz4t.join", "lz4t.checksum")
                    for n in names(four))
-    out_capacity = pipeline.round_up(BLOCK + 16, 16)
+    out_capacity = runtime.round_up(BLOCK + 16, 16)
     monkeypatch.setattr(pack, "DECODE_BUDGET", 250 * (out_capacity + 16))
     cut = span_count(tmp_path, *small_blocks_frame(1000))
     assert names(cut).count("lz4t.launch") == 4
@@ -172,7 +172,7 @@ def units(n: int) -> int:
 def test_stats_count_a_known_frame_exactly():
     lt.reset_stats()
     frame = lt.compress_frame_parallel(DATA, BLOCK, device="cpu")
-    blocks, _ = pipeline._scan_frame(lt.LZ4FrameReader(frame, engine="cpu"))
+    blocks, _ = scan_frame(lt.LZ4FrameReader(frame, engine="cpu"))
     payloads = [p for compressed, p, _ in blocks if compressed]
     assert len(blocks) == 4 and payloads
     s = lt.stats()
@@ -198,20 +198,22 @@ def test_stats_count_a_known_frame_exactly():
     assert s["device_bytes_peak"] == 0
 
 
-def test_reset_stats_zeroes_every_counter(monkeypatch, frame):
-    kernel = compress.KERNEL
-    monkeypatch.setattr(kernel, "launches", kernel.launches)
+def test_reset_stats_zeroes_every_counter(frame):
+    kernel = compress.KERNEL  # its one launch counter only goes up
     lt.reset_stats()
+    before = kernel.launches
     kernel.begin()
     kernel.begin()
     lt.decompress_frames_parallel([frame], device="cpu")
     s = lt.stats()
-    assert s["launches"]["compress"] == 2
+    assert s["launches"]["compress"] == 2 and kernel.launches == before + 2
     assert s["calls"]["decompress_frames"] == 1 and s["uploads"] == 1 and s["fetch_bytes"] > 0
     launches = kernel.launches
     lt.reset_stats()
     s = lt.stats()
     assert s["launches"]["compress"] == 0 and kernel.launches == launches  # its own count stays
+    kernel.reset()
+    assert kernel.launches == launches and lt.stats()["launches"]["compress"] == 0
     assert all(v == 0 for v in s["calls"].values())
     assert all(s[k] == 0 for k in runtime.COUNTERS)
 
@@ -223,7 +225,7 @@ def broken_frame(flip: int, oversize: int | None) -> bytes:
     data = make_corpus_sample(5, 3 * BLOCK)
     frame = bytearray(lt.CompressionSettings().engine("cpu").block_size(BLOCK)
                       .block_checksums(True).compress_bytes(data))
-    blocks, _ = pipeline._scan_frame(lt.LZ4FrameReader(bytes(frame), engine="cpu"))
+    blocks, _ = scan_frame(lt.LZ4FrameReader(bytes(frame), engine="cpu"))
     assert len(blocks) == 3
     at = [frame.index(payload) for _, payload, _ in blocks]
     frame[at[flip] + len(blocks[flip][1])] ^= 1  # a byte of the block's checksum

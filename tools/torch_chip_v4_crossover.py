@@ -10,7 +10,7 @@ each member cut into full blocks, those the greedy parse does not shrink
 left out, the rest repeated in order up to the row count), each decoder
 decodes ``rows`` blocks with the frame path's geometry: the comp width the
 longest payload rounded to 16, the output capacity ``block_maxsize`` plus
-that width, one call a ``DECODE_BUDGET`` group (``_decode_payloads``).
+that width, one call a ``DECODE_BUDGET`` group (``parallel.blocks.decode_payloads``).
 The first call of each is checked block for block against the input; then
 ``reps`` passes of each, in turns (v4, big, big, v4, ...), are timed by
 CUDA events around the launches alone (``KernelStats``).  A line a shape:
@@ -64,7 +64,7 @@ def stand_in_blocks(members, block_size: int):
 
 
 def shape(dev, blocks, comp, block_size: int, rows: int, reps: int) -> dict:
-    """Both decoders over ``rows`` of the blocks, as ``_decode_payloads``
+    """Both decoders over ``rows`` of the blocks, as ``decode_payloads``
     launches them."""
     pick = [i % len(blocks) for i in range(rows)]
     blocks, comp = [blocks[i] for i in pick], [comp[i] for i in pick]
