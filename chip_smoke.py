@@ -23,7 +23,13 @@ Phases, in order; any mismatch or exception exits non-zero:
    of linked ones, both timed alone; the edges of its warp-wide parse:
    stale tables behind a table offset on rows that collide inside a batch,
    megabyte literal runs before far copies, tiny rows, rows off the
-   16-byte grid, one row under every cap) and the four decoders,
+   16-byte grid, one row under every cap), its split parse (a row cut at
+   seams, a warp a segment, the proven pieces stitched) against its
+   one-warp kernel on every member's 4 MiB blocks, a launch a member, and
+   timed beside it on one 4 MiB row of xml, the largest member and one
+   random 4 MiB row (every seam taken over: within 1.25 times the one-warp
+   kernel's time, or the script fails), with the seams and takeovers it
+   counted, and the four decoders,
    decode128, decompress_v4, decode_big and decompress_v3 (64 KiB
    prefixes, hostile blocks, seeded mutations of valid blocks, hand-made
    streams at the edges of a 32-sequence batch, literal-heavy streams into
@@ -167,9 +173,12 @@ F1_LINKED = 25_000
 # phase 11: the launches of phases 3-8 and of phase 9 at full scale, as the
 # runs before the transport (PERF.md: B3 for 3-8, R2 for 9) counted them,
 # with the default route's groups of big blocks on decode_v4 in place of
-# decode_big (the same launches, another kernel)
-LAUNCHES_3_8 = {"compress": 1552, "decode_big": 74, "compress128": 272, "decode128": 477,
-                "decode_v4": 784, "decode_v3": 1}
+# decode_big, and the 26 launches of independent 4 MiB-block frames written
+# without a dictionary (phases 3, 4a, 6a, 8a) on compress.cu's split parse
+# in place of its one-warp kernel (the same launches, another kernel); 6d's
+# one 256 KiB row stays on the one-warp kernel (split_seam's SPLIT_REACH)
+LAUNCHES_3_8 = {"compress": 1526, "compress_split": 26, "decode_big": 74, "compress128": 272,
+                "decode128": 477, "decode_v4": 784, "decode_v3": 1}
 LAUNCHES_9 = {"decode_big": 143, "decode128": 39, "decode_v4": 409}
 PAGEABLE_MAX = 8 << 10  # phase 11: the largest pageable copy a frame path may make
 
@@ -425,6 +434,124 @@ def check_compress(members):
                       f"{int(want[1][i]):,d} B): {ms:.3f} ms on the card, bound "
                       f"{moved / HBM_BYTES_PER_S * 1e3:.4f} ms")
     return dict(err=err, **timing)
+
+
+def check_split(members):
+    """compress.cu's split parse (a row cut at seams, a warp a segment, the
+    pieces stitched) against its one-warp kernel: every 4 MiB block of each
+    member in one launch, as the frame writer launches them (cap = block
+    size).  Then three shapes held against the one-warp kernel and against
+    the split parse's plain version on the same rows (``out``, ``out_len``,
+    ``status`` and the seams; the seams taken over depend on which warp has
+    published how far on the card, so they are printed, not compared): one
+    4 MiB row of xml, the largest member's rows, and the split path's worst
+    case, one random 4 MiB row (no search start in common: every seam taken
+    over), whose time must stay within 1.25 times the one-warp kernel's.
+    Returns the report."""
+    import numpy as np
+    import torch
+
+    from lz4tpu_torch.kernels import compress as kc
+    from lz4tpu_torch.parallel.blocks import block_lens
+    from lz4tpu_torch.runtime import round_up
+    from lz4tpu_torch.spec.table import U32_SLOTS
+
+    block = 4 << 20
+    width = round_up(block + 16, 16)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def launches(data):
+        lens = block_lens(len(data), block)
+        arr = np.zeros((len(lens), block), np.uint8)
+        arr.reshape(-1)[: len(data)] = np.frombuffer(data, np.uint8)
+        rows = torch.from_numpy(arr).cuda()
+        n = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        zeros, ones = torch.zeros_like(n), torch.ones_like(n)
+        tables = torch.zeros((len(lens), U32_SLOTS), dtype=torch.int32, device="cuda")
+        seam = kc.split_seam(lens, sms)
+        plan = None
+        if seam is not None:
+            plan = kc.split_plan(lens, seam)
+            plan = plan._replace(warps=torch.from_numpy(plan.warps).cuda(),
+                                 row_first=torch.from_numpy(plan.row_first).cuda())
+        n_cpu = n.cpu()
+        return lens, seam, {
+            "one warp": lambda: kc.compress_batch(rows, n, zeros, n, ones, zeros, zeros, tables,
+                                                  width),
+            "split": lambda: kc.compress_split(rows, n, n, ones, seam, plan, width),
+            "plain": lambda: kc.compress_split_plain(torch.from_numpy(arr), n_cpu, n_cpu,
+                                                     torch.ones_like(n_cpu), seam, width)}
+
+    def held(name, want, got):
+        w_out, w_len, w_st = (t.cpu() for t in want[:3])
+        g_out, g_len, g_st = (t.cpu() for t in got[:3])
+        ok = w_st == 0
+        if not (torch.equal(w_st, g_st) and torch.equal(w_len[ok], g_len[ok])
+                and torch.equal(w_out[ok], g_out[ok]) and not g_out[~ok].any()):
+            fail(f"compress_split[{name}]: differs from the one-warp kernel")
+        return got[3].cpu()
+
+    def held_by_plain(name, plain, got):
+        p_out, p_len, p_st, p_counts = plain
+        g_out, g_len, g_st, g_counts = (t.cpu() for t in got)
+        if not (torch.equal(p_st, g_st) and torch.equal(p_len, g_len)
+                and torch.equal(p_out, g_out) and torch.equal(p_counts[0], g_counts[0])):
+            fail(f"compress_split[{name}]: differs from its plain version")
+        return int(p_counts[1].sum())
+
+    seams = taken = rows_split = 0
+    for name, data in members.items():
+        lens, seam, calls = launches(data)
+        if seam is None:
+            print(f"  compress_split[{name}]: {len(lens)} rows, none long enough to split")
+            continue
+        counts = held(name, calls["one warp"](), calls["split"]())
+        seams += int(counts[0].sum())
+        taken += int(counts[1].sum())
+        rows_split += len(lens)
+        print(f"  compress_split[{name}]: {len(lens)} rows at seams {seam:,d} B apart, "
+              f"{int(counts[0].sum())} seams, {int(counts[1].sum())} taken over; equal to the "
+              f"one-warp kernel")
+    if not rows_split:
+        fail("compress_split: no member's rows took the split parse")
+    print(f"  compress_split: {rows_split} rows, {seams} seams, {taken} taken over "
+          f"(compress_seams, compress_seams_taken_over)")
+
+    largest = max(members, key=lambda m: len(members[m]))
+    rnd = random.Random(0x5EED)
+    shapes = {"one 4 MiB row of xml": members["xml"][:block],
+              f"{largest}, {len(block_lens(len(members[largest]), block))} rows":
+                  members[largest],
+              "one random 4 MiB row": rnd.randbytes(block)}
+    timing = {}
+    for label, data in shapes.items():
+        lens, seam, calls = launches(data)
+        if seam is None:
+            continue
+        got = calls["split"]()
+        counts = held(label, calls["one warp"](), got)
+        t0 = time.perf_counter()
+        plain = calls["plain"]()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        plain_taken = held_by_plain(label, plain, got)
+        ms = in_turns(("one warp", "split"), calls)
+        bound = (len(data) + 2 * 4 * U32_SLOTS * len(lens)) / HBM_BYTES_PER_S * 1e3
+        timing[label] = dict(one_warp_ms=ms["one warp"], split_ms=ms["split"], seam=seam,
+                             seams=int(counts[0].sum()), taken_over=int(counts[1].sum()),
+                             plain_taken_over=plain_taken, plain_ms=plain_ms, bound_ms=bound)
+        print(f"  compress_split at {label}: {ms['split']:.3f} ms, one warp a row "
+              f"{ms['one warp']:.3f} ms ({ms['one warp'] / ms['split']:.2f}x), seams "
+              f"{seam:,d} B apart, {int(counts[0].sum())} seams, {int(counts[1].sum())} taken "
+              f"over (plain version: {plain_taken}), bound {bound:.4f} ms; equal to the "
+              f"one-warp kernel and to the plain version ({plain_ms:.1f} ms on the host)")
+    worst = timing["one random 4 MiB row"]
+    if worst["split_ms"] > 1.25 * worst["one_warp_ms"]:
+        fail(f"compress_split: the random row took {worst['split_ms']:.3f} ms, over 1.25 "
+             f"times the one-warp kernel's {worst['one_warp_ms']:.3f} ms")
+    first = timing.get("one 4 MiB row of xml") or next(iter(timing.values()))
+    return dict(err=0, ms=first["split_ms"], plain_ms=first["plain_ms"],
+                bound_ms=first["bound_ms"], shape="one 4 MiB row of xml, seams by split_seam",
+                at_frame_rows=timing, seams=seams, taken_over=taken)
 
 
 def compress_whole(kc, row: bytes) -> bytes:
@@ -1208,6 +1335,23 @@ def kernel_modules():
     return (kc, c128, d128, dv4, dbig, dv3)
 
 
+def kernel_stats():
+    """Every kernel's ``KernelStats`` by name, with its module:
+    ``compress.cu`` has two entry points, the one-warp kernel
+    (``compress``) and the split parse (``compress_split``)."""
+    return {k.name: (k, m) for m in kernel_modules()
+            for k in (m.KERNEL, getattr(m, "SPLIT_KERNEL", None)) if k is not None}
+
+
+def frame_kernel(data: bytes) -> str:
+    """The ``compress.cu`` entry point (its launch counter) that ``data``'s
+    independent 4 MiB-block frame takes on this card
+    (``parallel.blocks.scalar_route``)."""
+    from lz4tpu_torch.parallel.blocks import block_lens, scalar_route
+
+    return scalar_route(block_lens(len(data), 4 << 20), None, False, "cuda")[0]
+
+
 class PathMeter:
     """Launch counts, kernel time and least traffic of one driven path:
     every kernel's count is taken when the path begins and again when it
@@ -1216,18 +1360,18 @@ class PathMeter:
     def __init__(self, path: str, needed):
         self.path = path
         self.needed = needed
-        self.stats = {m.KERNEL.name: m.KERNEL for m in kernel_modules()}
+        self.stats = {name: k for name, (k, _) in kernel_stats().items()}
         self.traffic = {name: 0 for name in self.stats}  # bytes each kernel must move
         for k in self.stats.values():
             k.reset(timing=True)
         self.start = launch_counts()
 
-    def compressed(self, frame, n_in, row_extra=0):
+    def compressed(self, frame, n_in, row_extra=0, kernel="compress"):
         """Account one frame's compress launch: input rows (``row_extra``
         bytes of window or dictionary each), output, tables in and out."""
         comp_bytes, _, nc, ns = frame_stats(frame)
-        self.traffic["compress"] += (n_in + (nc + ns) * row_extra + comp_bytes
-                                     + 2 * 4 * 4096 * (nc + ns))
+        self.traffic[kernel] += (n_in + (nc + ns) * row_extra + comp_bytes
+                                 + 2 * 4 * 4096 * (nc + ns))
 
     def lane_compressed(self, frame, n_in, source_extra=0):
         """Account one frame's lane-compress launch: the flat source once
@@ -1256,7 +1400,9 @@ class PathMeter:
                                 main_bound_ms=self.traffic[name] / HBM_BYTES_PER_S * 1e3)
             k.reset()
         for name in self.needed:
-            if report[name]["launches"] <= 0:
+            # compress.cu's scalar parse runs in either of its entry points
+            names = ("compress", "compress_split") if name == "compress" else (name,)
+            if sum(report[n]["launches"] for n in names) <= 0:
                 fail(f"{self.path}: kernel {name} was never launched")
         print(f"  {self.path}: " + ", ".join(
             f"{n} {r['launches']} launches {r['main_ms']:.2f} ms"
@@ -1318,7 +1464,7 @@ def phase_main(members, scale: float):
         fail("main path: 4 MiB-block frame does not round-trip on decode_big")
     if lt.decompress_frame_parallel(frame) != data:
         fail("main path: 4 MiB-block frame does not round-trip on decompress_v4")
-    meter.compressed(frame, len(data))
+    meter.compressed(frame, len(data), kernel=frame_kernel(data))
     meter.decoded("decode_big", frame, len(data))
     meter.decoded("decode_v4", frame, len(data))
     print(f"  4 MiB-block frame: {names[-1]}, ratio {len(frame) / len(data):.4f}, "
@@ -1368,7 +1514,7 @@ def phase_big_and_linked(members):
         t_dec += dt
         if back != data:
             fail(f"(a) big blocks: {name} does not round-trip")
-        meter.compressed(frame, len(data))
+        meter.compressed(frame, len(data), kernel=frame_kernel(data))
         meter.decoded("decode_v4", frame, len(data))
         n_out += len(frame)
     summaries = {"4a": rates("(a) 4 MiB independent blocks", total, n_out, t_comp, t_dec)}
@@ -1556,7 +1702,7 @@ def phase_lane(members, scalar):
 
 
 def launch_counts():
-    return {m.KERNEL.name: m.KERNEL.launches for m in kernel_modules()}
+    return {name: k.launches for name, (k, _) in kernel_stats().items()}
 
 
 def launched(before):
@@ -1637,12 +1783,14 @@ def phase_streaming(members, frames_4a):
             frames[path] = frame
             if back != data:
                 fail(f"(6a) {path}: {name} does not round-trip")
-            meter.compressed(frame, len(data))
+            meter.compressed(frame, len(data), kernel=frame_kernel(data)
+                             if path == "batched" else "compress")
             meter.decoded("decode_v4", frame, len(data))
         if not frames["batched"] == frames["per block"] == frames_4a[name]:
             fail(f"(6a) {name}: the batched, per-block and phase 4a frames differ")
         _, _, nc, ns = frame_stats(frames["batched"])
-        want = {"compress": 1, "decode_v4": 1} if nc else {"compress": 1}
+        kernel = frame_kernel(data)
+        want = {kernel: 1, "decode_v4": 1} if nc else {kernel: 1}
         if counts["batched"] != want:
             fail(f"(6a) {name}: the batched path launched {counts['batched']}, not {want}")
         batched_frames[name] = frames["batched"]
@@ -2066,7 +2214,8 @@ def phase_native(members, frames_4a, mirror, smi):
     data = members[name]
     meter = PathMeter(f"(8a) level 9, {name}, cuda", ("compress", "decode_v4"))
     frame_cuda, t_cuda = wall(lambda: lt.CompressionSettings().level(9).compress_bytes(data))
-    meter.compressed(frames_4a[name], len(data))  # compress.cu made 4a's greedy payloads
+    # compress.cu made 4a's greedy payloads
+    meter.compressed(frames_4a[name], len(data), kernel=frame_kernel(data))
     back = lt.decompress_frame(frame_cuda)
     frame_native, t_native = native_only("(8a)", lambda: lt.CompressionSettings().engine(
         "native").level(9).compress_bytes(data))
@@ -2591,10 +2740,11 @@ def main() -> int:
     phase("phase 2: kernels against their plain versions")
     lane = check_compress128(members)
     comp = check_compress(members)
+    split = check_split(members)
     dec = check_decoders(members)
     check_push_windows()
     check_host_paths(members)
-    checks = {"compress": comp, "compress128": lane, **dec}
+    checks = {"compress": comp, "compress_split": split, "compress128": lane, **dec}
     for name, r in checks.items():
         print(f"  {name}: {r['ms']:.3f} ms on the card, plain {r['plain_ms']:.1f} ms on the "
               f"host CPU, bound {r['bound_ms']:.4f} ms ({r['shape']})")
@@ -2630,8 +2780,7 @@ def main() -> int:
     phase("")
 
     rows = []
-    for mod in kernel_modules():
-        name = mod.KERNEL.name
+    for name, (_, mod) in kernel_stats().items():
         c = checks[name]
         on = {path: r[name] for path, r in paths.items() if r[name]["launches"]}
         rows.append({

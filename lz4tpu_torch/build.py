@@ -111,6 +111,10 @@ _SIGNATURES = {
     # table_out, table_slots, out, out_stride, out_len, status, nblocks, stream
     "lz4t_compress": (_I, [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                            _P, _I64, _P, _P, _I, _P]),
+    # data, data_stride, n, cap, accel, plan, row_first, n_warps, n_rows, seam,
+    # scratch, rec_bytes, progress, handoff, out, out_stride, meta, stream
+    "lz4t_compress_split": (_I, [_P, _I64, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I64, _P, _P,
+                                 _P, _I64, _P, _P]),
     # comp, comp_stride, comp_len, prefix, prefix_stride, prefix_width,
     # prefix_len, limit, out, out_stride, out_len, status, nblocks, stream
     "lz4t_decode128": (_I, [_P, _I64, _P, _P, _I64, _I64, _P, _I64, _P, _I64,

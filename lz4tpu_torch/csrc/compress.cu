@@ -1,4 +1,5 @@
-// Greedy LZ4 block compressor, one LZ4 block per warp.
+// Greedy LZ4 block compressor, one LZ4 block per warp, or one block on many
+// warps (split_kernel and stitch_kernel, further down).
 //
 // Replaces: lz4tpu/kernels/compress.py:71 _compress_kernel (launched by
 // _compress_batch_jit, compress.py:481), the byte-exact scalar greedy parse
@@ -63,6 +64,16 @@
 //     loop.
 // What is left is a chain of some 300 dependent operations a sequence in a
 // warp that has its SM to itself, at 4 to 6 cycles each.
+//
+// A frame of 4 MiB blocks has only 2 to 13 such warps for 132 SMs, so the
+// frame path cuts each independent row at seams and runs a warp a segment,
+// all with this parse step (split_kernel); a run's output is used from
+// where an earlier exact run's records prove it agrees with it.  A run
+// parses its segment and the 150 to 300 KiB it takes two greedy parses of
+// the stand-in to meet and stay equal for 64 KiB; with 96 KiB seams a
+// 4 MiB row of xml takes 16.6 ms against 103.1 ms
+// (tools/torch_chip_split_sweep.py; the rule is split_seam in
+// kernels/compress.py).
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -235,18 +246,210 @@ __device__ __forceinline__ void put_literals(uint8_t* d, const Input& in, int sr
     if (lane < len - done) d[done + lane] = (uint8_t)in.rd8(src + done + lane);
 }
 
+// ---------------------------------------------------------------------------
+// One row on many warps.  A split launch cuts each row at seams S, 2S, ...
+// and gives every segment a warp (a block of its own).  Segment k's warp runs
+// parse_block over the whole row from its seam, on an empty table: a slot
+// more than 0xFFFF behind a probe is rejected as an empty one is, and every
+// seam lies past 0xFFFF, so the run is a greedy parse from that search start
+// with nothing behind it.  Segment 0's run is the row's exact parse.  Each
+// run publishes a record of every sequence (below) and checks its records
+// against a later segment's as both go: records identical from a common
+// search start c0 up to a common search start h >= c0 + HANDOFF_SPAN mean
+// the same inserts over the 64 KiB behind h, so every slot a later probe can
+// use holds the same position in both tables, and the two runs agree from h
+// on.  The run stops there and hands the row over at h.  A check never waits
+// for another block: where the target has not published far enough, the run
+// parses on and looks again 32 sequences later.  Where the target's records
+// end without a proof, the run tries the segment the target handed over to,
+// else the next one (a takeover); with none left it parses to the row's end,
+// the one-warp kernel's work.  stitch_kernel then copies each row's proven
+// pieces in order (kernels/compress.py: parse_split_plain is the model).
+// ---------------------------------------------------------------------------
+
+constexpr int HANDOFF_SPAN = 1 << 16;
+constexpr int MAX_SEGMENTS = 64;     // kernels/compress.py MAX_SEGMENTS
+constexpr int FINAL = INT32_MIN;     // a published count that will not grow
+constexpr int PLAN = 6;              // row, segment, scratch at, bytes, records at, records
+constexpr int HANDOFF = 8;  // target, h, own op at h, target's op at h, final op, records, deferred
+constexpr int DEFER_MIN = 1024;      // a literal run this long is left to the stitch
+constexpr int DEFER_CAP = 64;        // deferred runs a warp
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ void store_release(int* p, int v) {
+    asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(p), "r"(v) : "memory");
+}
+
+// A split run's records and its check against a later segment's.  A record
+// is (probe that hit, its candidate, match end, output offset at the search
+// start), the tail's (-1, -1, n, offset); a record's search start is the
+// end of the one before, the first's the seam.  Every field is the same in
+// all lanes.
+struct Split {
+    const long long* plan;  // PLAN int64 a warp, rows in order
+    int4* recs;             // every warp's records
+    int* progress;          // every warp's published count (| FINAL)
+    int* handoff;           // HANDOFF int32 a warp
+    int w, seg, nseg, seam;
+    int4* own;
+    int cap, count;
+    int4* deferred;  // (output offset, input offset, length) of the runs left to the stitch
+    int n_deferred;
+    // the check: target segment (-1: none), next own and target record and
+    // their search starts, the run of identical records from c0
+    int tgt, i, j, ci, dj, c0;
+    bool anchored;
+    int h, h_tgt, own_op, tgt_op;  // the proven hand-off (h < 0: none)
+
+    __device__ void publish(bool final, int lane) {
+        __syncwarp();
+        if (lane == 0) store_release(progress + w, count | (final ? FINAL : 0));
+    }
+
+    // A sequence parsed (by the whole warp): true where the run is to stop.
+    __device__ __forceinline__ bool record(int hit, int cand, int end, long long op, int lane) {
+        if (count >= cap) return false;
+        if (lane == 0) own[count] = make_int4(hit, cand, end, (int)op);
+        if ((++count & 31) && count < cap) return false;
+        if (count == cap && lane == 0) handoff[HANDOFF * w] = -1;  // for a reader before finish
+        publish(count == cap, lane);
+        return h < 0 && compare(lane);
+    }
+
+    // A long literal run at out[op..) is left for the stitch to copy from the
+    // input, and only if the row turns out compressible: a run that no cap
+    // stops (the one-warp kernel aborts a row at its cap) would otherwise
+    // be copied by every warp that parses over it.  False: copy it here.
+    __device__ __forceinline__ bool defer(long long op, int from, int len, int lane) {
+        if (len < DEFER_MIN || n_deferred >= DEFER_CAP) return false;
+        if (lane == 0) deferred[n_deferred] = make_int4((int)op, from, len, 0);
+        ++n_deferred;
+        return true;
+    }
+
+    // Compare as far as both runs have published; true on a proven hand-off.
+    __device__ bool compare(int lane) {
+        while (tgt >= 0 && i < count) {
+            const int tw = w - seg + tgt;
+            const int4* theirs = recs + plan[PLAN * tw + 4];
+            const int prog = load_acquire(progress + tw);
+            const int lm = min(THREADS, (prog & INT32_MAX) - j);
+            if (lm <= 0) {
+                if (prog >= 0) return false;  // not there yet: parse on
+                // their records end unproven: where they handed over, else the next
+                const int next = __ldcg(handoff + HANDOFF * tw);
+                tgt = next >= 0 ? next : tgt + 1 < nseg ? tgt + 1 : -1;
+                j = 0;
+                dj = tgt * seam;
+                anchored = false;
+                continue;
+            }
+            const int lo = min(THREADS, count - i);
+            int4 o = make_int4(0, 0, 0, 0), t = o;
+            if (lane < lo) o = __ldcg(own + i + lane);
+            if (lane < lm) t = __ldcg(theirs + j + lane);
+            // each lane's search starts: the end of the record before
+            int os = __shfl_up_sync(FULL, o.z, 1), ts = __shfl_up_sync(FULL, t.z, 1);
+            if (lane == 0) {
+                os = ci;
+                ts = dj;
+            }
+            if (anchored) {
+                const bool in = lane < min(lo, lm);
+                const unsigned differ =
+                    __ballot_sync(FULL, in & ((o.x != t.x) | (o.y != t.y) | (o.z != t.z)));
+                const unsigned far = __ballot_sync(FULL, in & (os - c0 >= HANDOFF_SPAN));
+                const int fd = differ ? __ffs(differ) - 1 : THREADS;
+                const int ff = far ? __ffs(far) - 1 : THREADS;
+                if (ff <= fd && ff < THREADS) {  // identical from c0 to a start past the span
+                    h = __shfl_sync(FULL, os, ff);
+                    own_op = __shfl_sync(FULL, o.w, ff);
+                    tgt_op = __shfl_sync(FULL, t.w, ff);
+                    h_tgt = tgt;
+                    return true;
+                }
+                const int adv = fd < THREADS ? fd + 1 : min(lo, lm);
+                anchored = fd >= THREADS;
+                ci = __shfl_sync(FULL, o.z, adv - 1);
+                dj = __shfl_sync(FULL, t.z, adv - 1);
+                i += adv;
+                j += adv;
+                continue;
+            }
+            // the first own start the target also has: each lane searches
+            // the target's starts of this step for its own
+            const int last = __shfl_sync(FULL, ts, lm - 1);
+            int a = 0, b = lm;  // the first target lane whose start is >= os
+            for (int step = 0; step < 6; ++step) {
+                const int mid = (a + b) >> 1;
+                const int v = __shfl_sync(FULL, ts, mid & 31);
+                if (a < b) {
+                    if (v < os) a = mid + 1;
+                    else b = mid;
+                }
+            }
+            const bool found = (lane < lo) & (a < lm) & (__shfl_sync(FULL, ts, a & 31) == os);
+            const unsigned founds = __ballot_sync(FULL, found);
+            const unsigned beyond = __ballot_sync(FULL, (lane < lo) & (os > last));
+            const int f = founds ? __ffs(founds) - 1 : THREADS;
+            const int u = beyond ? __ffs(beyond) - 1 : THREADS;
+            if (f < u) {
+                const int at = __shfl_sync(FULL, a, f);
+                ci = __shfl_sync(FULL, os, f);
+                dj = __shfl_sync(FULL, ts, at);
+                i += f;
+                j += at;
+                c0 = ci;
+                anchored = true;
+            } else if (u < THREADS) {  // own lane u lies past these target records
+                ci = __shfl_sync(FULL, os, u);
+                i += u;
+                dj = __shfl_sync(FULL, t.z, lm - 1);
+                j += lm;
+            } else {  // none of these own starts is the target's
+                ci = __shfl_sync(FULL, o.z, lo - 1);
+                i += lo;
+            }
+        }
+        return false;
+    }
+
+    // The run is over (stopped at its hand-off, or at the row's end): a last
+    // check, then the hand-off and the final count for the readers.
+    __device__ void finish(long long op, int lane) {
+        publish(false, lane);
+        if (h < 0) compare(lane);
+        if (lane == 0) {
+            int* ho = handoff + HANDOFF * w;
+            ho[0] = h >= 0 ? h_tgt : -1;
+            ho[1] = h;
+            ho[2] = own_op;
+            ho[3] = tgt_op;
+            ho[4] = (int)op;
+            ho[5] = count;
+            ho[6] = n_deferred;
+        }
+        publish(true, lane);
+    }
+};
+
 // One block's greedy parse (spec: reference compress/mod.rs:166-238; the
 // same result as lz4tpu/native/src/lz4_native.cpp compress_impl), run by
 // the whole warp; every variable but `lane` and the per-lane probe is the
 // same in all lanes.  Positions are 32-bit (n is); the table offset, the
 // output position and, past a search's first batch, the skip schedule are
 // taken in 64 bits.
-template <class T>
+template <class T, bool SPLIT = false>
 __device__ __forceinline__ void parse_block(typename T::slot_t* tab, uint8_t* claim,
                                             const Input& in, int n,
                             int init_cursor, long long cap, int acceleration, long long toff,
                             bool prime, uint8_t* out, long long out_cap, int32_t* out_len,
-                            int32_t* status, int lane) {
+                            int32_t* status, int lane, Split* split = nullptr) {
     using slot_t = typename T::slot_t;
     // in-kernel prefix priming: positions 0, 3, 6, ... <= cursor-8, later
     // inserts overwriting earlier ones (framed/compress.rs:202-214)
@@ -270,7 +473,7 @@ __device__ __forceinline__ void parse_block(typename T::slot_t* tab, uint8_t* cl
     int32_t st = STATUS_OK;
     while (cursor < n) {
         const int literal_start = cursor;
-        int offset = 0, extra = 0;
+        int offset = 0, extra = 0, hit_at = 0;
         bool tail = false;
         uint64_t v8 = 0;       // the 8 bytes at this lane's probe
         bool in_order = false;  // lane l probed literal_start + l
@@ -360,6 +563,7 @@ __device__ __forceinline__ void parse_block(typename T::slot_t* tab, uint8_t* cl
                 const bool open = (equal == 8) & (limit > 8);
                 const bool backs = (p > literal_start) & (candidate > 0) & (before == before_p);
                 cursor = __shfl_sync(FULL, p, first_hit);
+                hit_at = cursor;
                 candidate = __shfl_sync(FULL, candidate, first_hit);
                 int matching = __shfl_sync(FULL, equal, first_hit), back = 0;
                 const unsigned more = __shfl_sync(FULL, (unsigned)open | ((unsigned)backs << 1),
@@ -389,9 +593,11 @@ __device__ __forceinline__ void parse_block(typename T::slot_t* tab, uint8_t* cl
                 st = STATUS_INCOMPRESSIBLE;
                 break;
             }
+            if constexpr (SPLIT) split->record(-1, -1, n, op, lane);
             if (lane == 0) out[op] = (uint8_t)((literal_len < 0xF ? literal_len : 0xF) << 4);
             op = put_lsic(out, op + 1, literal_len, lane);
-            put_literals(out + op, in, literal_start, literal_len, lane);
+            if (!SPLIT || !split->defer(op, literal_start, literal_len, lane))
+                put_literals(out + op, in, literal_start, literal_len, lane);
             op += literal_len;
             break;
         }
@@ -401,6 +607,7 @@ __device__ __forceinline__ void parse_block(typename T::slot_t* tab, uint8_t* cl
             st = STATUS_INCOMPRESSIBLE;
             break;
         }
+        const long long group_at = op;
         if (lane == 0)
             out[op] = (uint8_t)(((literal_len < 0xF ? literal_len : 0xF) << 4) |
                                 (extra < 0xF ? extra : 0xF));
@@ -408,7 +615,7 @@ __device__ __forceinline__ void parse_block(typename T::slot_t* tab, uint8_t* cl
         if (in_order && literal_len <= THREADS) {
             // lane l probed literal_start + l: its probe word begins with its literal
             if (lane < literal_len) out[op + lane] = (uint8_t)v8;
-        } else {
+        } else if (!SPLIT || !split->defer(op, literal_start, literal_len, lane)) {
             put_literals(out + op, in, literal_start, literal_len, lane);
         }
         op += literal_len;
@@ -417,8 +624,13 @@ __device__ __forceinline__ void parse_block(typename T::slot_t* tab, uint8_t* cl
             out[op + 1] = (uint8_t)((offset >> 8) & 0xFF);
         }
         op = put_lsic(out, op + 2, extra, lane);
+        if constexpr (SPLIT) {
+            if (split->record(hit_at, hit_at - offset, cursor, group_at, lane)) break;
+        }
     }
-    if (lane == 0) {
+    if constexpr (SPLIT) {
+        split->finish(op, lane);
+    } else if (lane == 0) {
         *out_len = (int32_t)op;
         *status = st;
     }
@@ -455,12 +667,181 @@ compress_kernel(const uint8_t* __restrict__ data, long long data_stride,
     for (int i = lane; i < T::SLOTS; i += THREADS) tout[i] = (int32_t)(uint32_t)tab[i];
 }
 
+
+// Segment plan[w] of its row: parse_block from the seam on an empty table,
+// no cap, into the warp's scratch.  Later segments take the lower block
+// numbers, so that where the launch's blocks are not all resident a check
+// finds its target's records published.
+__global__ void __launch_bounds__(THREADS)
+split_kernel(const uint8_t* __restrict__ data, long long data_stride,
+             const int32_t* __restrict__ n_arr, const int32_t* __restrict__ accel_arr,
+             const long long* __restrict__ plan, int n_warps, int seam, int4* recs,
+             int4* deferred, uint8_t* scratch, int* progress, int* handoff) {
+    __shared__ uint32_t tab[U32T::SLOTS];
+    __shared__ uint8_t claim[U32T::SLOTS];
+    const int lane = threadIdx.x;
+    const int w = n_warps - 1 - (int)blockIdx.x;
+    const long long* p = plan + PLAN * (long long)w;
+    const int row = (int)p[0], seg = (int)p[1];
+    for (int i = lane; i < U32T::SLOTS; i += THREADS) tab[i] = 0;
+    __syncwarp();
+    const uint8_t* base = data + row * data_stride;
+    const int n = n_arr[row];
+    Input in;
+    in.skew = (int)((uintptr_t)base & 3);
+    in.g = reinterpret_cast<const uint32_t*>(base - in.skew);
+    in.last_word = max(n + in.skew - 1, 0) >> 2;
+    Split sp;
+    sp.plan = plan;
+    sp.recs = recs;
+    sp.progress = progress;
+    sp.handoff = handoff;
+    sp.w = w;
+    sp.seg = seg;
+    sp.nseg = max(n / seam, 1);
+    sp.seam = seam;
+    sp.own = recs + p[4];
+    sp.cap = (int)p[5];
+    sp.count = 0;
+    sp.deferred = deferred + DEFER_CAP * (long long)w;
+    sp.n_deferred = 0;
+    sp.tgt = seg + 1 < sp.nseg ? seg + 1 : -1;
+    sp.i = sp.j = 0;
+    sp.ci = seg * seam;
+    sp.dj = (seg + 1) * seam;
+    sp.c0 = 0;
+    sp.anchored = false;
+    sp.h = -1;
+    sp.h_tgt = sp.own_op = sp.tgt_op = -1;
+    parse_block<U32T, true>(tab, claim, in, n, seg * seam, INT64_MAX, accel_arr[row], 0, false,
+                            scratch + p[2], p[3], nullptr, nullptr, lane, &sp);
+}
+
+// The output offset of a run's sequence that starts at e: from its records,
+// or past them by walking its tokens from the last one.  One thread.
+__device__ int op_at(const int4* rec, int count, int first, const uint8_t* out, int e) {
+    int a = 0, b = count;  // the first record whose start is >= e
+    while (a < b) {
+        const int mid = (a + b) >> 1;
+        if ((mid ? rec[mid - 1].z : first) < e) a = mid + 1;
+        else b = mid;
+    }
+    if (a < count) {
+        if ((a ? rec[a - 1].z : first) != e) __trap();
+        return rec[a].w;
+    }
+    int pos = count > 1 ? rec[count - 2].z : first, op = rec[count - 1].w;
+    while (pos < e) {
+        const int token = out[op++];
+        int lit = token >> 4, ml = token & 0xF;
+        for (int more = lit == 0xF; more;) {
+            const int b8 = out[op++];
+            lit += b8;
+            more = b8 == 0xFF;
+        }
+        op += lit + 2;
+        for (int more = ml == 0xF; more;) {
+            const int b8 = out[op++];
+            ml += b8;
+            more = b8 == 0xFF;
+        }
+        pos += lit + ml + (int)MINMATCH;
+    }
+    if (pos != e) __trap();
+    return op;
+}
+
+constexpr int STITCH_THREADS = 256;
+constexpr int STITCH_CHUNK = 1 << 16;  // output bytes a block copies
+
+// Row blockIdx.y: follow the hand-offs from segment 0 and copy the proven
+// pieces' bytes of output chunk blockIdx.x into the row's out.  A hand-off
+// that lies before the point the row entered its segment is a chain: the
+// target agrees with that segment from its h on, so the row goes on there.
+// meta (4, rows): out_len (the stitched length), status, seams, seams taken
+// over (whose hand-off did not come from the segment before).
+__global__ void __launch_bounds__(STITCH_THREADS)
+stitch_kernel(const uint8_t* __restrict__ data, long long data_stride,
+              const int32_t* __restrict__ cap_arr,
+              const long long* __restrict__ plan, const int32_t* __restrict__ row_first,
+              int seam, const int4* __restrict__ recs, const int4* __restrict__ deferred,
+              const uint8_t* __restrict__ scratch, const int* __restrict__ handoff,
+              uint8_t* __restrict__ out, long long out_stride, int32_t* __restrict__ meta,
+              int n_rows) {
+    __shared__ long long src[MAX_SEGMENTS];
+    __shared__ int dst[MAX_SEGMENTS + 1], from[MAX_SEGMENTS], seg_of[MAX_SEGMENTS];
+    __shared__ int n_pieces;
+    const int row = blockIdx.y;
+    const int w0 = row_first[row], nseg = row_first[row + 1] - w0;
+    const long long limit = cap_arr[row] < 0 ? out_stride : min((long long)cap_arr[row], out_stride);
+    if (threadIdx.x == 0) {
+        int k = 0, e = 0, e_op = 0, hops = 0, np = 0, total = 0;
+        for (;;) {
+            const int* ho = handoff + HANDOFF * (w0 + k);
+            const long long* p = plan + PLAN * (long long)(w0 + k);
+            const int tgt = ho[0], h = ho[1];
+            if (tgt >= 0 && h < e) {
+                hops += tgt == k + 1;
+                k = tgt;
+                e_op = -1;
+                continue;
+            }
+            if (e_op < 0) e_op = op_at(recs + p[4], ho[5], k * seam, scratch + p[2], e);
+            const int end = tgt >= 0 ? ho[2] : ho[4];
+            src[np] = p[2] + e_op;
+            from[np] = e_op;
+            seg_of[np] = w0 + k;
+            dst[np++] = total;
+            total += end - e_op;
+            if (tgt < 0) break;
+            hops += tgt == k + 1;
+            k = tgt;
+            e = h;
+            e_op = ho[3];
+        }
+        dst[np] = total;
+        n_pieces = np;
+        if (blockIdx.x == 0) {
+            meta[row] = total;
+            meta[n_rows + row] = total > limit ? STATUS_INCOMPRESSIBLE : STATUS_OK;
+            meta[2 * n_rows + row] = nseg - 1;
+            meta[3 * n_rows + row] = nseg - 1 - hops;
+        }
+    }
+    __syncthreads();
+    const int total = dst[n_pieces];
+    if (total > limit) return;  // stored raw: the row stays zero
+    const int c0 = blockIdx.x * STITCH_CHUNK, c1 = min(c0 + STITCH_CHUNK, total);
+    uint8_t* o = out + row * out_stride;
+    for (int q = 0; q < n_pieces; ++q) {
+        const int a = max(c0, dst[q]), b = min(c1, dst[q + 1]);
+        const uint8_t* at = scratch + src[q] - dst[q];
+        for (int x = a + (int)threadIdx.x; x < b; x += STITCH_THREADS) o[x] = at[x];
+    }
+    __syncthreads();
+    // the long literal runs the pieces' warps left: from the input, over
+    // the holes just copied
+    const uint8_t* in = data + row * data_stride;
+    for (int q = 0; q < n_pieces; ++q) {
+        const int4* d = deferred + DEFER_CAP * (long long)seg_of[q];
+        const int nd = handoff[HANDOFF * seg_of[q] + 6];
+        for (int r = 0; r < nd; ++r) {
+            const int4 run = d[r];  // (output offset, input offset, length)
+            const int at = dst[q] + run.x - from[q];
+            if (run.x < from[q] || at >= dst[q + 1]) continue;  // outside the piece
+            const int a = max(c0, at), b = min(c1, at + run.z);
+            const uint8_t* lit = in + run.y - at;
+            for (int x = a + (int)threadIdx.x; x < b; x += STITCH_THREADS) o[x] = lit[x];
+        }
+    }
+}
+
 // The SM's one array is split between shared memory and L1 per kernel, and
 // left alone the split goes to shared memory (for as many resident rows as
 // the thread count allows), which leaves an L1 too small for a row's window.
 // Ask for the shared memory the rows that share an SM need, and no more.
-template <class T>
-void prefer_l1(int nblocks) {
+template <class T, class K>
+void prefer_l1(K kernel, int nblocks) {
     int dev = 0, sms = 0, per_sm = 0;
     if (cudaGetDevice(&dev) != cudaSuccess ||
         cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
@@ -471,7 +852,7 @@ void prefer_l1(int nblocks) {
     const long long row = T::SLOTS * (sizeof(typename T::slot_t) + 1) + 1024;  // + the system's
     const long long rows = (nblocks + sms - 1) / sms;
     const long long percent = (rows * row * 100 + per_sm - 1) / per_sm;
-    cudaFuncSetAttribute(compress_kernel<T>, cudaFuncAttributePreferredSharedMemoryCarveout,
+    cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
                          (int)(percent < 100 ? percent : 100));
 }
 
@@ -480,7 +861,7 @@ void launch(const void* data, long long data_stride, const void* n_arr, const vo
             const void* cap_arr, const void* accel_arr, const void* toff_arr,
             const void* prime_arr, const void* table_in, void* table_out, void* out,
             long long out_stride, void* out_len, void* status, int nblocks, cudaStream_t s) {
-    prefer_l1<T>(nblocks);
+    prefer_l1<T>(compress_kernel<T>, nblocks);
     compress_kernel<T><<<nblocks, THREADS, 0, s>>>(
         (const uint8_t*)data, data_stride, (const int32_t*)n_arr, (const int32_t*)cursor_arr,
         (const int32_t*)cap_arr, (const int32_t*)accel_arr, (const int32_t*)toff_arr,
@@ -506,5 +887,34 @@ extern "C" int lz4t_compress(const void* data, long long data_stride, const void
                      prime_arr, table_in, table_out, out, out_stride, out_len, status, nblocks, s);
     else
         return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
+}
+
+// Independent rows through the split parse (kernels/compress.py
+// compress_split): split_kernel over the plan's warps, then stitch_kernel.
+// scratch holds the records (rec_bytes), DEFER_CAP deferred runs a warp,
+// then every warp's output.
+// Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int lz4t_compress_split(const void* data, long long data_stride, const void* n_arr,
+                                   const void* cap_arr, const void* accel_arr, const void* plan,
+                                   const void* row_first, int n_warps, int n_rows, int seam,
+                                   void* scratch, long long rec_bytes, void* progress,
+                                   void* handoff, void* out, long long out_stride, void* meta,
+                                   void* stream) {
+    if (n_warps <= 0 || n_rows <= 0) return 0;
+    cudaStream_t s = (cudaStream_t)stream;
+    int4* recs = (int4*)scratch;
+    int4* deferred = (int4*)((uint8_t*)scratch + rec_bytes);
+    uint8_t* outs = (uint8_t*)(deferred + DEFER_CAP * (long long)n_warps);
+    prefer_l1<U32T>(split_kernel, n_warps);
+    split_kernel<<<n_warps, THREADS, 0, s>>>(
+        (const uint8_t*)data, data_stride, (const int32_t*)n_arr, (const int32_t*)accel_arr,
+        (const long long*)plan, n_warps, seam, recs, deferred, outs, (int*)progress,
+        (int*)handoff);
+    const dim3 grid((unsigned)((out_stride + STITCH_CHUNK - 1) / STITCH_CHUNK), (unsigned)n_rows);
+    stitch_kernel<<<grid, STITCH_THREADS, 0, s>>>(
+        (const uint8_t*)data, data_stride, (const int32_t*)cap_arr, (const long long*)plan,
+        (const int32_t*)row_first, seam, recs, deferred, outs, (const int*)handoff,
+        (uint8_t*)out, out_stride, (int32_t*)meta, n_rows);
     return (int)cudaGetLastError();
 }

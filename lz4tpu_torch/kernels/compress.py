@@ -10,6 +10,14 @@ once and takes the first hit, the match the serial loop takes.
 ``parse_batched_plain`` follows the kernel's steps and is held equal to it
 by the tests.
 
+One row on many warps (``compress_split``, the frame path's independent
+rows without a dictionary, where ``split_seam`` finds a row long enough):
+the row is cut at seams ``S`` apart, each segment's warp runs the same
+parse from its seam on an empty table, a run hands the row over to a later
+segment's where their records prove the two parses agree from there on,
+and a second launch stitches the proven pieces.  ``parse_split_plain`` is
+its plain version, held byte-equal to ``parse_plain`` by the tests.
+
 Tensor contract of ``compress_batch`` (kernel and plain version alike):
 
 * ``data`` (N, C) uint8 — row i holds ``[prefix | block]``, ``n[i]`` bytes;
@@ -24,6 +32,9 @@ Tensor contract of ``compress_batch`` (kernel and plain version alike):
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +55,7 @@ from ..state import tables_from_jax
 from .status import STATUS_INCOMPRESSIBLE, STATUS_OK
 
 KERNEL = KernelStats("compress")
+SPLIT_KERNEL = KernelStats("compress_split")
 SOURCE = "lz4tpu_torch/csrc/compress.cu"
 REPLACES = "lz4tpu/kernels/compress.py:71"
 
@@ -132,6 +144,80 @@ def _lsic_len(v: int) -> int:
     return 0 if v < 0xF else (v - 0xF) // 0xFF + 1
 
 
+def _sequences(data: bytes, hashes: list, start: int, init_cursor: int, acceleration: int,
+               toff: int, tab: list, mask: int):
+    """The greedy parse of ``data`` from ``start``, one sequence at a time:
+    ``(literal_start, hit, candidate, end, backtrack)`` for a match (the
+    probe that hit, its candidate, the match's end, the bytes it extends
+    backwards), then ``(literal_start, -1, -1, n, 0)`` for the tail.  Each
+    sequence's table inserts are made before it is yielded; ``tab`` is
+    mutated in place."""
+    n = len(data)
+    cursor = start
+    while cursor < n:
+        literal_start = cursor
+        step_counter = acceleration << SKIP_TRIGGER
+        step = 1
+        while True:
+            if cursor + step > n - (LAST_LITERALS - 1):
+                yield literal_start, -1, -1, n, 0
+                return
+            h = hashes[cursor]
+            candidate = max(tab[h] - toff, 0)
+            tab[h] = (cursor + toff) & mask
+            if cursor != init_cursor and cursor - candidate <= 0xFFFF:
+                matching = _lcp(data, cursor, n - MFLIMIT, candidate, n)
+                if matching >= MINMATCH:
+                    bt = 0
+                    max_bt = cursor - literal_start
+                    while (
+                        bt < max_bt
+                        and candidate - bt > 0
+                        and data[cursor - bt - 1] == data[candidate - bt - 1]
+                    ):
+                        bt += 1
+                    hit = cursor
+                    cursor += matching
+                    tab[hashes[cursor - 2]] = (cursor - 2 + toff) & mask
+                    yield literal_start, hit, candidate, cursor, bt
+                    break
+            cursor += step
+            if literal_start + 1 != cursor:
+                step = step_counter >> SKIP_TRIGGER
+                step_counter += 1
+
+
+def _group_len(seq) -> int:
+    """The bytes of a sequence of ``_sequences`` in the block format."""
+    literal_start, hit, candidate, end, bt = seq
+    if hit < 0:
+        literal_len = end - literal_start
+        return 1 + _lsic_len(literal_len) + literal_len
+    literal_len = hit - bt - literal_start
+    return 1 + _lsic_len(literal_len) + literal_len + 2 + _lsic_len(end - hit - MINMATCH + bt)
+
+
+def _put_group(out: bytearray, data: bytes, seq) -> None:
+    """Append a sequence of ``_sequences`` to ``out`` in the block format."""
+    literal_start, hit, candidate, end, bt = seq
+    if hit < 0:
+        literal_len = end - literal_start
+        out.append(min(literal_len, 0xF) << 4)
+        _lsic(out, literal_len)
+        out += data[literal_start:end]
+        return
+    literal_end = hit - bt
+    literal_len = literal_end - literal_start
+    extra = end - hit - MINMATCH + bt
+    offset = hit - candidate
+    out.append((min(literal_len, 0xF) << 4) | min(extra, 0xF))
+    _lsic(out, literal_len)
+    out += data[literal_start:literal_end]
+    out.append(offset & 0xFF)
+    out.append((offset >> 8) & 0xFF)
+    _lsic(out, extra)
+
+
 def parse_plain(data: bytes, init_cursor: int, cap: int, acceleration: int, toff: int,
                 prime: bool, tab: list, u16: bool, out_capacity: int):
     """One block's greedy parse, the kernel's steps in Python.  ``tab`` (a
@@ -144,56 +230,12 @@ def parse_plain(data: bytes, init_cursor: int, cap: int, acceleration: int, toff
         for p in range(0, init_cursor - 7, 3):
             tab[hashes[p]] = (p + toff) & mask
     out = bytearray()
-    cursor = min(init_cursor, n)
-    while cursor < n:
-        literal_start = cursor
-        step_counter = acceleration << SKIP_TRIGGER
-        step = 1
-        while True:
-            if cursor + step > n - (LAST_LITERALS - 1):
-                literal_len = n - literal_start
-                group = 1 + _lsic_len(literal_len) + literal_len
-                if len(out) + group > cap or len(out) + group > out_capacity:
-                    return bytes(out), STATUS_INCOMPRESSIBLE
-                out.append(min(literal_len, 0xF) << 4)
-                _lsic(out, literal_len)
-                out += data[literal_start:n]
-                return bytes(out), STATUS_OK
-            h = hashes[cursor]
-            candidate = max(tab[h] - toff, 0)
-            tab[h] = (cursor + toff) & mask
-            if cursor != init_cursor and cursor - candidate <= 0xFFFF:
-                matching = _lcp(data, cursor, n - MFLIMIT, candidate, n)
-                if matching >= MINMATCH:
-                    extra = matching - MINMATCH
-                    offset = cursor - candidate
-                    bt = 0
-                    max_bt = cursor - literal_start
-                    while (
-                        bt < max_bt
-                        and candidate - bt > 0
-                        and data[cursor - bt - 1] == data[candidate - bt - 1]
-                    ):
-                        bt += 1
-                    extra += bt
-                    cursor += matching
-                    tab[hashes[cursor - 2]] = (cursor - 2 + toff) & mask
-                    break
-            cursor += step
-            if literal_start + 1 != cursor:
-                step = step_counter >> SKIP_TRIGGER
-                step_counter += 1
-        literal_end = cursor - extra - MINMATCH
-        literal_len = literal_end - literal_start
-        group = 1 + _lsic_len(literal_len) + literal_len + 2 + _lsic_len(extra)
+    for seq in _sequences(data, hashes, min(init_cursor, n), init_cursor, acceleration, toff,
+                          tab, mask):
+        group = _group_len(seq)
         if len(out) + group > cap or len(out) + group > out_capacity:
             return bytes(out), STATUS_INCOMPRESSIBLE
-        out.append((min(literal_len, 0xF) << 4) | min(extra, 0xF))
-        _lsic(out, literal_len)
-        out += data[literal_start:literal_end]
-        out.append(offset & 0xFF)
-        out.append((offset >> 8) & 0xFF)
-        _lsic(out, extra)
+        _put_group(out, data, seq)
     return bytes(out), STATUS_OK
 
 
@@ -362,6 +404,355 @@ def compress_plain(data, n, cursor, cap, accel, toff, prime, tables, out_capacit
         status[i] = st
         tab_out[i] = np.asarray(tab, dtype=np.uint32)
     return out, out_len, status, table_out
+
+
+# ---------------------------------------------------------------------------
+# one row on many warps: the parse cut at seams
+# ---------------------------------------------------------------------------
+
+#: the least seam spacing, and the warps a launch aims at for each
+#: multiprocessor: ``tools/torch_chip_split_sweep.py`` at full scale (H100
+#: 80GB HBM3, 700 W), each Silesia stand-in member's 4 MiB rows in one launch
+#: at spacings of 68, 96 and 128 KiB: the 12 members' kernel times sum to
+#: 269, 255 and 269 ms (one warp a row: 1,615 ms).  A warp parses its
+#: segment and then 150 to 300 KiB more before its records meet the next
+#: warp's and stay equal for HANDOFF_SPAN, so the spacing buys little below
+#: 96 KiB; 96 KiB over mozilla's 13 rows is 513 warps, about 4 a
+#: multiprocessor, the fastest of the four spacings there.
+SEAM_FLOOR = 96 << 10
+WARPS_PER_SM = 4
+#: a launch is split only where its longest row reaches a seam and this
+#: much more: segment 0 parses to its hand-off, 150 to 300 KiB past the
+#: first seam and then HANDOFF_SPAN of agreement, so in a shorter row it
+#: parses most of the row and the other warps, their records and the
+#: stitch are cost.  The same sweep at 96 KiB seams, each member's rows in
+#: one launch against the one-warp kernel, the 12 members' times summed
+#: (and the members' range): 256 KiB rows 0.77 times (0.70-1.09), 512 KiB
+#: 0.94 (0.80-1.19), 640 KiB 1.16 (0.89-1.45), 768 KiB 1.24 (0.88-1.64,
+#: 5 members under 1), 1 MiB 1.67 (1.11-2.27), 2 MiB 3.23 (1.76-4.49): at
+#: the floor's spacing rows of 864 KiB and more split
+SPLIT_REACH = 768 << 10
+#: records of two runs identical over this many bytes from a common search
+#: start prove that the runs agree from there on: every table slot a probe
+#: can still use (at most 0xFFFF behind it) was written by the same inserts
+HANDOFF_SPAN = 1 << 16
+#: the most segments of one row (the stitch's table of pieces)
+MAX_SEGMENTS = 64
+#: a record: (probe that hit, its candidate, match end, output offset at
+#: the search start); the tail's is (-1, -1, n, offset)
+RECORD_BYTES = 16
+#: long literal runs a warp leaves to the stitch (``csrc/compress.cu``
+#: DEFER_CAP), 16 bytes each
+DEFERRED_RUNS = 64
+
+
+@functools.lru_cache(maxsize=None)
+def _card_multiprocessors(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def multiprocessors(dev) -> int:
+    """The multiprocessors of ``dev``'s card; 1 for the CPU, which runs the
+    plain versions one parse at a time."""
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return 1
+    return _card_multiprocessors(torch.cuda.current_device() if dev.index is None else dev.index)
+
+
+def split_seam(lens, sms: int):
+    """The seam spacing ``S`` of one launch over independent rows of
+    ``lens`` on a card of ``sms`` multiprocessors: about ``WARPS_PER_SM``
+    warps a multiprocessor over the launch's bytes, in whole 4 KiB, never
+    under ``SEAM_FLOOR`` nor over ``MAX_SEGMENTS`` segments a row.
+    ``None`` where no row has two segments and reaches ``S + SPLIT_REACH``:
+    the launch stays on the one-warp kernel."""
+    lens = np.asarray(lens, np.int64)
+    if not len(lens):
+        return None
+    longest = int(lens.max())
+    share = int(lens.sum()) // (sms * WARPS_PER_SM) // 4096 * 4096
+    seam = max(SEAM_FLOOR, share, round_up(-(-longest // MAX_SEGMENTS), 4096))
+    return seam if longest >= seam + max(seam, SPLIT_REACH) else None
+
+
+def segments(n: int, seam: int) -> int:
+    """Segments of a row of ``n`` bytes: seams at ``S, 2S, ...``, the last
+    segment from ``(k - 1) S`` to the row's end, at least ``S`` long."""
+    return max(n // seam, 1)
+
+
+def record_capacity(span: int, seam: int) -> int:
+    """Records a warp keeps of a parse over ``span`` bytes: one sequence a
+    8 bytes (text runs 10 to 13) over its segment, the next one and 768 KiB
+    of overlap (the hand-offs measured on the stand-in fall within 600
+    KiB).  A warp that fills them parses on to the row's end, and no check
+    reads past them, so the cap costs time, never a byte."""
+    return min(span, 2 * seam + (768 << 10)) // 8 + 64
+
+
+class SplitPlan(NamedTuple):
+    """The warps of one split launch: ``warps`` (W, 6) int64 rows of (row,
+    segment, scratch offset, scratch bytes, first record, records) in row
+    order; ``row_first`` (N + 1,) int32, each row's first warp;
+    ``scratch_bytes`` and ``records`` in all."""
+    warps: object
+    row_first: object
+    scratch_bytes: int
+    records: int
+
+
+def split_plan(lens, seam: int) -> SplitPlan:
+    """The plan of a split launch over rows of ``lens`` (host arrays).  A
+    warp's scratch holds the worst case of its parse to the row's end."""
+    if seam <= 0xFFFF:
+        raise ValueError(f"compress_split: seams {seam} B apart leave an empty slot in reach")
+    warps, row_first = [], [0]
+    scratch = records = 0
+    for r, n in enumerate(np.asarray(lens, np.int64).tolist()):
+        if segments(n, seam) > MAX_SEGMENTS:
+            raise ValueError(f"compress_split: a row of {n} B in over {MAX_SEGMENTS} segments")
+        for k in range(segments(n, seam)):
+            span = n - k * seam
+            size = round_up(compress_bound(span), 16)
+            recs = record_capacity(span, seam)
+            warps.append((r, k, scratch, size, records, recs))
+            scratch += size
+            records += recs
+        row_first.append(len(warps))
+    return SplitPlan(np.array(warps, np.int64).reshape(-1, 6), np.array(row_first, np.int32),
+                     scratch, records)
+
+
+class _Run:
+    """One warp's parse of a row from its first search start (its seam):
+    its output, its records and its hand-off ``(target segment, h, own
+    offset at h, target's offset at h)``, ``None`` where it parsed to the
+    row's end."""
+
+    def __init__(self, first: int):
+        self.first = first
+        self.out = bytearray()
+        self.records = []
+        self.handoff = None
+
+
+def _start(records, i: int, first: int) -> int:
+    """The search start of record ``i``: the end of the one before it."""
+    return records[i - 1][2] if i else first
+
+
+class _Compare:
+    """Segment ``k``'s check of its records against a later segment's, in
+    the kernel's order (``csrc/compress.cu``, ``compare``).  Records
+    identical from a common search start ``c0`` up to a common search
+    start ``h >= c0 + HANDOFF_SPAN`` prove the hand-off at ``h``.  A target
+    whose records are all read and final without a proof gives way to the
+    segment it handed off to, else to the one after it (a takeover), and
+    the check starts over there."""
+
+    def __init__(self, k: int, n_segments: int, seam: int, runs):
+        self.k, self.n_segments, self.seam, self.runs = k, n_segments, seam, runs
+        self.tgt = k + 1 if k + 1 < n_segments else -1
+        self.i = self.j = 0
+        self.anchor = -1
+
+    def _next_target(self):
+        hand = self.runs[self.tgt].handoff
+        if hand is not None:
+            self.tgt = hand[0]
+        else:
+            self.tgt = self.tgt + 1 if self.tgt + 1 < self.n_segments else -1
+        self.j = 0
+        self.anchor = -1
+
+    def step(self, own):
+        """Compare as far as ``own`` records go: the hand-off, or ``None``."""
+        while self.tgt >= 0 and self.i < len(own):
+            theirs = self.runs[self.tgt].records
+            first = self.runs[self.tgt].first
+            c = _start(own, self.i, self.k * self.seam)
+            if self.anchor < 0:
+                while self.j < len(theirs) and _start(theirs, self.j, first) < c:
+                    self.j += 1
+                if self.j == len(theirs):
+                    self._next_target()
+                elif _start(theirs, self.j, first) == c:
+                    self.anchor = c
+                else:
+                    self.i += 1
+                continue
+            if self.j == len(theirs):
+                self._next_target()
+                continue
+            if c >= self.anchor + HANDOFF_SPAN:
+                return self.tgt, c, own[self.i][3], theirs[self.j][3]
+            if own[self.i][:3] != theirs[self.j][:3]:
+                self.anchor = -1
+            self.i += 1
+            self.j += 1
+        return None
+
+
+def _split_run(data: bytes, hashes: list, k: int, n_segments: int, seam: int,
+               acceleration: int, runs) -> _Run:
+    """Segment ``k``'s warp: ``parse_plain``'s loop from the seam on an
+    empty table, no cap, stopped at its proven hand-off."""
+    n = len(data)
+    start = k * seam
+    run = _Run(start)
+    keep = record_capacity(n - start, seam)
+    check = _Compare(k, n_segments, seam, runs)
+    for seq in _sequences(data, hashes, start, start, acceleration, 0, [0] * U32_SLOTS,
+                          0xFFFFFFFF):
+        op = len(run.out)
+        _put_group(run.out, data, seq)
+        if len(run.records) < keep:
+            run.records.append((seq[1], seq[2], seq[3], op))
+            run.handoff = check.step(run.records)
+            if run.handoff is not None:
+                break
+    return run
+
+
+def _op_at(run: _Run, e: int) -> int:
+    """The output offset of ``run``'s sequence that starts at ``e``: from
+    its records, or past them by walking its tokens from the last one."""
+    recs, first = run.records, run.first
+    for i, rec in enumerate(recs):
+        if _start(recs, i, first) == e:
+            return rec[3]
+    pos, op = _start(recs, len(recs) - 1, first), recs[-1][3]
+    out = run.out
+    while pos < e:
+        token = out[op]
+        op += 1
+        lit = token >> 4
+        if lit == 0xF:
+            while out[op] == 0xFF:
+                lit += 0xFF
+                op += 1
+            lit += out[op]
+            op += 1
+        op += lit + 2
+        ml = token & 0xF
+        if ml == 0xF:
+            while out[op] == 0xFF:
+                ml += 0xFF
+                op += 1
+            ml += out[op]
+            op += 1
+        pos += lit + ml + MINMATCH
+    if pos != e:
+        raise AssertionError(f"no sequence starts at {e}")
+    return op
+
+
+def stitch_pieces(runs):
+    """The row's proven pieces in order, ``(segment, first byte, end
+    byte)`` of each one's output, and the hand-offs that went to the next
+    segment.  Segment 0 is exact from 0; a hand-off at ``h`` continues in
+    its target from ``h``.  One that lies before the point the row entered
+    its segment (``h < e``) is a chain: the target agrees with that
+    segment from ``h`` on, so the row goes on in the target from ``e``."""
+    pieces, hops = [], 0
+    k, e, e_op = 0, 0, 0
+    while True:
+        hand = runs[k].handoff
+        if hand is not None and hand[1] < e:
+            hops += hand[0] == k + 1
+            k, e_op = hand[0], None
+            continue
+        if e_op is None:
+            e_op = _op_at(runs[k], e)
+        if hand is None:
+            pieces.append((k, e_op, len(runs[k].out)))
+            return pieces, hops
+        tgt, h, own_op, tgt_op = hand
+        pieces.append((k, e_op, own_op))
+        hops += tgt == k + 1
+        k, e, e_op = tgt, h, tgt_op
+
+
+def parse_split_plain(data: bytes, cap: int, acceleration: int, seam: int, out_capacity: int):
+    """One independent row's greedy parse cut at seams ``seam`` apart, by
+    the split kernel's steps: every segment's run (later segments first,
+    so a check never waits), the stitch of the proven pieces.  Returns
+    (payload, length, status, seams, takeovers): the payload is empty and
+    the status ``STATUS_INCOMPRESSIBLE`` where the length passes the cap,
+    and takeovers count the seams whose hand-off did not come from the
+    segment before."""
+    n = len(data)
+    n_segments = segments(n, seam)
+    hashes = hash_all_u32(data).tolist()
+    runs = [None] * n_segments
+    for k in reversed(range(n_segments)):
+        runs[k] = _split_run(data, hashes, k, n_segments, seam, acceleration, runs)
+    pieces, hops = stitch_pieces(runs)
+    total = sum(b - a for _, a, b in pieces)
+    limit = out_capacity if cap < 0 else min(cap, out_capacity)
+    seams = n_segments - 1
+    if total > limit:
+        return b"", total, STATUS_INCOMPRESSIBLE, seams, seams - hops
+    payload = b"".join(bytes(runs[k].out[a:b]) for k, a, b in pieces)
+    return payload, total, STATUS_OK, seams, seams - hops
+
+
+def compress_split_plain(data, n, cap, accel, seam: int, out_capacity: int):
+    """Plain version of the split launch on CPU tensors (see
+    ``compress_split``)."""
+    n_rows = data.shape[0]
+    rows = data.numpy()
+    out = torch.zeros((n_rows, out_capacity), dtype=torch.uint8)
+    meta = torch.zeros((4, n_rows), dtype=torch.int32)
+    for i, (size, c, a) in enumerate(zip(n.tolist(), cap.tolist(), accel.tolist())):
+        payload, total, st, seams, taken = parse_split_plain(
+            rows[i, :size].tobytes(), c, a, seam, out_capacity)
+        out.numpy()[i, : len(payload)] = np.frombuffer(payload, np.uint8)
+        meta[:, i] = torch.tensor([total, st, seams, taken], dtype=torch.int32)
+    return out, meta[0], meta[1], meta[2:]
+
+
+def compress_split(data, n, cap, accel, seam: int, plan: SplitPlan, out_capacity: int):
+    """Independent rows (no prefix, cursor 0, no table carried) through
+    the split parse: the CUDA kernels for CUDA tensors, the plain version
+    for CPU tensors.  ``plan`` is ``split_plan(n, seam)``, its arrays on
+    ``data``'s device.  Returns ``out``, ``out_len``, ``status`` and
+    ``counts`` (2, N) int32: each row's seams and the seams taken over.
+    ``out`` and ``status`` are ``compress_batch``'s; ``out_len`` is the
+    stitched length, which passes the cap exactly where the row is
+    ``STATUS_INCOMPRESSIBLE`` (its row then stays zero)."""
+    if data.is_cuda:
+        return _compress_split_cuda(data, n, cap, accel, seam, plan, out_capacity)
+    return compress_split_plain(data, n, cap, accel, seam, out_capacity)
+
+
+def _compress_split_cuda(data, n, cap, accel, seam, plan, out_capacity):
+    lib = build.load()
+    n_rows = data.shape[0]
+    n_warps = plan.warps.shape[0]
+    # the output rows and every warp's published record count, zeroed in
+    # one fill
+    zeros = torch.zeros(n_rows * out_capacity + 4 * n_warps, dtype=torch.uint8,
+                        device=data.device)
+    out = zeros[: n_rows * out_capacity].view(n_rows, out_capacity)
+    progress = zeros[n_rows * out_capacity :].view(torch.int32)
+    scratch = torch.empty(RECORD_BYTES * (plan.records + DEFERRED_RUNS * n_warps)
+                          + plan.scratch_bytes, dtype=torch.uint8, device=data.device)
+    handoff = torch.empty((n_warps, 8), dtype=torch.int32, device=data.device)
+    meta = torch.empty((4, n_rows), dtype=torch.int32, device=data.device)
+    with torch.cuda.device(data.device):
+        h = SPLIT_KERNEL.begin()
+        rc = lib.lz4t_compress_split(
+            data.data_ptr(), data.stride(0), n.data_ptr(), cap.data_ptr(), accel.data_ptr(),
+            plan.warps.data_ptr(), plan.row_first.data_ptr(), n_warps, n_rows, seam,
+            scratch.data_ptr(), RECORD_BYTES * plan.records, progress.data_ptr(),
+            handoff.data_ptr(), out.data_ptr(), out_capacity, meta.data_ptr(),
+            stream_handle(),
+        )
+        SPLIT_KERNEL.end(h)
+    build.check(rc, "compress_split")
+    return out, meta[0], meta[1], meta[2:]
 
 
 # ---------------------------------------------------------------------------

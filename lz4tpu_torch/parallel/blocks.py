@@ -26,7 +26,8 @@ import torch
 from .. import hostpack
 from ..frame.errors import DecodeError as FrameDecodeError
 from ..kernels import pack
-from ..kernels.compress import compress_batch
+from ..kernels.compress import (KERNEL, SPLIT_KERNEL, compress_batch, compress_split,
+                                multiprocessors, split_plan, split_seam)
 from ..kernels.compress128 import MAX_B, compress128
 from ..kernels.decode128 import MAX_BLOCK, decode128
 from ..kernels.decodebig import decode_big
@@ -113,11 +114,25 @@ def _linked_cursors(n_blocks: int, full_first: bool) -> np.ndarray:
     return cursors
 
 
+def scalar_route(lens, dictionary, parallel_linked, dev):
+    """The ``compress.cu`` entry point of one launch over blocks of
+    ``lens`` on ``dev``: (its launch counter's name, the seam spacing).
+    Independent rows without a dictionary take the split parse
+    (``compress_split``: each row cut at seams, a warp a segment) where the
+    launch's shape gives it (``split_seam``); the rest take the one-warp
+    kernel (``compress_batch``), seam ``None``."""
+    seam = None
+    if not parallel_linked and not dictionary:
+        seam = split_seam(lens, multiprocessors(dev))
+    return (KERNEL.name if seam is None else SPLIT_KERNEL.name), seam
+
+
 def scalar_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, acceleration,
                   dev):
-    """Blocks ``lo:hi`` of the frame through the scalar greedy compressor:
-    their bytes in one upload, one launch on ``dev``, not waited for: a
-    ``hostpack.Handle`` of the output rows, lengths and statuses."""
+    """Blocks ``lo:hi`` of the frame through the scalar greedy compressor
+    on the route ``scalar_route`` picks: their bytes in one upload, one
+    launch on ``dev``, not waited for: a ``hostpack.Handle`` of the output
+    rows, lengths and statuses."""
     w = WINDOW_SIZE
     d = len(dictionary or b"")
     n_blocks = hi - lo
@@ -125,6 +140,8 @@ def scalar_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, ac
     a = lo * block_size
     b = a + int(lens.sum())
     template = U32Table()
+    _, seam = scalar_route(lens, dictionary, parallel_linked, dev)
+    plan = None if seam is None else split_plan(lens, seam)
     if parallel_linked:
         # the range behind the 64 KiB of input before it (every block is at
         # least 64 KiB, so a range past the first has a full window); the
@@ -150,6 +167,8 @@ def scalar_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, ac
     parts = [src[a - halo : b], params] + ([head] if head else [])
     if d and not parallel_linked:
         parts.append(template.dict.view(np.int32))
+    if plan is not None:
+        parts += [plan.warps, plan.row_first]
     content, params, *rest = hostpack.upload(dev, *parts)
     with span("lz4t.launch"):
         if parallel_linked:
@@ -168,19 +187,26 @@ def scalar_launch(src, lo, hi, lens, block_size, dictionary, parallel_linked, ac
                 buf[:, :d] = rest[0]
                 buf[:, d:] = rows
                 rows = buf
+        width = round_up(block_size + 16, 16)
+        if plan is not None:
+            plan = plan._replace(warps=rest[0], row_first=rest[1])
+            n, cap, accel = params[0], params[2], params[3]
+            return hostpack.Handle(*compress_split(rows, n, cap, accel, seam, plan, width))
         if d and not parallel_linked:
             tables = rest[1].expand(n_blocks, U32_SLOTS).contiguous()
         else:
             tables = torch.zeros((n_blocks, U32_SLOTS), dtype=torch.int32, device=dev)
-        out, out_len, status, _ = compress_batch(
-            rows, *params, tables, round_up(block_size + 16, 16))
+        out, out_len, status, _ = compress_batch(rows, *params, tables, width)
         return hostpack.Handle(out, out_len, status)
 
 
 def scalar_collect(handle, lens):
     """The payloads of a ``scalar_launch`` over blocks of ``lens``: a
     ``memoryview`` a block, ``None`` where it is stored raw."""
-    out_len, status = handle.meta()
+    out_len, status, *split = handle.meta()
+    if split:
+        count(compress_seams=int(split[0][0].sum()),
+              compress_seams_taken_over=int(split[0][1].sum()))
     return list(handle.collect(out_len, (status != STATUS_INCOMPRESSIBLE) & (lens > 0)))
 
 

@@ -105,7 +105,7 @@ ENTRIES = ("compress_frame", "decompress_frame", "decompress_frames")
 COUNTERS = ("uploads", "upload_bytes", "fetches", "fetch_bytes", "staging_allocs",
             "staging_alloc_bytes", "staging_waits", "content_hashes_beside",
             "content_hash_waits", "linked_frames", "waves", "wave_launches",
-            "window_pushes", "big_blocks_v4")
+            "window_pushes", "big_blocks_v4", "compress_seams", "compress_seams_taken_over")
 _CALLS = dict.fromkeys(ENTRIES, 0)
 _COUNTS = dict.fromkeys(COUNTERS, 0)
 

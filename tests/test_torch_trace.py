@@ -193,8 +193,8 @@ def test_stats_count_a_known_frame_exactly():
     assert (s["fetches"], s["fetch_bytes"]) == (1, sum(units(n) for n in sizes))
     # the plain versions launch no CUDA kernel and hold no device memory
     assert s["launches"] == dict.fromkeys(
-        ("compress", "compress128", "decode128", "decode_big", "decode_v4", "decode_v3",
-         "push_windows"), 0)
+        ("compress", "compress_split", "compress128", "decode128", "decode_big", "decode_v4",
+         "decode_v3", "push_windows"), 0)
     assert s["device_bytes_peak"] == 0
 
 
