@@ -3,8 +3,12 @@
 import json
 import shutil
 
+import pytest
+
 from lz4bench import catalog
 from lz4bench.run import main
+
+END_TO_END = {m["name"]: m for m in catalog.load()["end_to_end"]}
 
 
 def test_every_file_that_benchmark_json_names_is_there():
@@ -26,6 +30,18 @@ def test_every_file_that_benchmark_json_names_is_there():
     cells = {w["name"] for w in bench["workloads"]}
     for m in bench["per_layer"]:
         assert m["workloads"] and set(m["workloads"]) <= cells
+
+
+@pytest.mark.parametrize("name", list(END_TO_END))
+def test_end_to_end_bound_is_a_share_up_to_a_quarter(name):
+    assert 0 < END_TO_END[name]["bound"] <= 0.25
+
+
+@pytest.mark.parametrize("name", list(END_TO_END))
+def test_end_to_end_workloads_are_cells(name):
+    cells = {w["name"] for w in catalog.load()["workloads"]}
+    listed = END_TO_END[name].get("workloads", sorted(cells))
+    assert listed and len(set(listed)) == len(listed) and set(listed) <= cells
 
 
 def test_each_cell_reports_its_side_only():

@@ -58,33 +58,75 @@ def test_control_is_not_correct(capsys, cell):
     assert failing == ({"wrong_frames"} if "write" in cell else {"corrupt_accepted"})
 
 
+def entry(cell):
+    """The name of the program's function that the cell's op calls: the one
+    attribute its ``call`` reads from the package it is handed."""
+    read = []
+
+    class Package:
+        def __getattr__(self, name):
+            read.append(name)
+            return lambda *a, **k: b""
+
+    c = catalog.cell(cell)
+    c.op().call(Package(), b"", c.config, "cpu", {})
+    assert len(read) == 1 and callable(getattr(lz4tpu_torch, read[0])), read
+    return read[0]
+
+
 def unchanged(real, writes):
-    return lambda x, *a, **k: bytes(x)
+    """The input handed back as the answer: a batch's frames each as it came."""
+    return lambda x, *a, **k: [bytes(f) for f in x] if isinstance(x, list) else bytes(x)
 
 
 def half_left_out(real, writes):
-    """A write of half the object; a read of half the content."""
+    """A write of half the object; a read of half the content, or of half
+    the batch's frames."""
     if writes:
         return lambda x, *a, **k: real(x[: len(x) // 2], *a, **k)
     return lambda x, *a, **k: (lambda out: out[: len(out) // 2])(real(x, *a, **k))
 
 
 def altered(real, writes):
-    def call(x, *a, **k):
-        out = bytearray(real(x, *a, **k))
+    """One byte flipped in the answer, or in the middle frame's answer of a batch."""
+    def flip(answer):
+        out = bytearray(answer)
         out[len(out) // 2] ^= 1
         return bytes(out)
+
+    def call(x, *a, **k):
+        out = real(x, *a, **k)
+        if isinstance(out, list):
+            return [flip(o) if j == len(out) // 2 else o for j, o in enumerate(out)]
+        return flip(out)
     return call
 
 
+def answers_wrong(result):
+    """The count of wrong answers that the run compared: ``wrong_frames`` of
+    a write, ``wrong_contents`` of a read."""
+    checks = result["checks"]
+    return checks["wrong_frames" if "wrong_frames" in checks else "wrong_contents"]["value"]
+
+
+def test_entry_is_the_one_each_op_calls():
+    assert {c: entry(c) for c in CELLS} == {
+        "silesia-64k-read": "decompress_frame_parallel",
+        "silesia-4m-write": "compress_frame_parallel",
+        "silesia-4m-read": "decompress_frame_parallel",
+        "silesia-64k-write": "compress_frame_parallel",
+        "silesia-64k-readbatch": "decompress_frames_parallel",
+    }
+
+
 @pytest.mark.parametrize("fault", [unchanged, half_left_out, altered])
-@pytest.mark.parametrize("cell", ["silesia-64k-read", "silesia-4m-write"])
+@pytest.mark.parametrize("cell", ["silesia-64k-read", "silesia-4m-write", "silesia-64k-readbatch"])
 def test_faults_in_the_timed_path_are_caught(capsys, monkeypatch, cell, fault):
-    writes = "write" in cell
-    name = "compress_frame_parallel" if writes else "decompress_frame_parallel"
-    monkeypatch.setattr(lz4tpu_torch, name, fault(getattr(lz4tpu_torch, name), writes))
+    name = entry(cell)
+    monkeypatch.setattr(lz4tpu_torch, name, fault(getattr(lz4tpu_torch, name), "write" in cell))
     result, _ = rehearse(capsys, cell)
     assert result["correct"] is False
+    assert result["failed"] == 0 and answers_wrong(result) > 0
 
 
 def test_no_card_no_result():
@@ -125,14 +167,15 @@ def test_control_on_the_card(card, capsys, cell):
 @pytest.mark.parametrize("cell", CELLS)
 def test_altered_answer_on_the_card(card, capsys, monkeypatch, cell):
     """One byte altered where the answer is made, at the cell's own size,
-    on the card, three seeds: the upper reading of the answers' count."""
-    writes = "write" in cell
-    name = "compress_frame_parallel" if writes else "decompress_frame_parallel"
-    monkeypatch.setattr(lz4tpu_torch, name, altered(getattr(lz4tpu_torch, name), writes))
+    on the card, three seeds: the upper reading of the answers' count.
+    The fault goes into the entry point that the cell's op calls."""
+    name = entry(cell)
+    monkeypatch.setattr(lz4tpu_torch, name, altered(getattr(lz4tpu_torch, name), "write" in cell))
     for seed in (202, 2**31 + 8, 876543210):
         assert main(["--workload", cell, "--seed", str(seed), "--seconds", "3"]) == 0
         out, _ = capsys.readouterr()
         result = json.loads(out.strip().splitlines()[-1])
         with capsys.disabled():
-            print(cell, seed, json.dumps(result["checks"]))
+            print(cell, seed, name, json.dumps(result["checks"]))
         assert result["correct"] is False
+        assert result["failed"] == 0 and answers_wrong(result) > 0
